@@ -3,15 +3,17 @@
 
     python3 chip_smoke.py              # on a machine with one H100
 
-Drives the port's main path - the per-frame localization rollout
-(run_sequence) - at the extent of the bundled data1 sequence (a
-979x1440 map at 0.025 m/px, 279 frames of 360-ray scans to 13 m) on a
-synthetic multi-room scene made from a seed, since no dataset is
-mounted on the card's machine.  Phases, each printed on its own line;
-any failure exits non-zero before the last line:
+Drives the port's two paths at the extent of the bundled data1 sequence
+(a 979x1440 map at 0.025 m/px, 279 frames of 360-ray scans to 13 m) on
+a synthetic multi-room scene made from a seed, since no dataset is
+mounted on the card's machine: the per-frame localization rollout
+(run_sequence) and map prep (prepare_map: occupancy grid -> LSD map
+lines + distance field), then both together.  Phases, each printed on
+its own line; any failure exits non-zero before the last line:
 
   1. device: the card's name, count and power limit (no card: exit 2);
-  2. build: nvcc builds csrc/score.cu (seconds, ptxas registers/spills);
+  2. build: nvcc builds csrc/score.cu and csrc/nfa.cu, one process each,
+     started together (seconds, ptxas registers/spills);
   3. scene: the synthetic scene; its distance field from the port's
      create_map_cache on the card; its map lines from the wall segments;
   4. kernel check: the CalcScore kernel against its plain PyTorch
@@ -20,13 +22,24 @@ any failure exits non-zero before the last line:
      times, the bound and the launch counts;
   5. rollout: f64 on the card vs the CPU (identical decisions), then f32
      on the card, 5 repeats timed to value, with the kernel's launch
-     count checked against one launch per frame;
-  6. a JSON line of the kernels, the nvidia-smi name/power line, and the
+     count checked against one launch per frame (wall-segment lines, as
+     before map prep was ported, so the numbers stay comparable);
+  6. map prep: f64 on the card vs the CPU (the same lines within 1e-6
+     px, the distance field bit-exact, one NFA kernel launch per count
+     call), f32 on the card timed to value (median of 3) with the seed
+     walk's counters and the device idle share, then the NFA kernel
+     against its plain version on every launch the two runs made, on
+     degenerate rectangles, and timed on three recorded batches;
+  7. end to end: grid -> prepare_map (f32, card) -> make_map_context ->
+     run_sequence of the 279 frames, 5 repeats, tracked frames and the
+     position error against the true trajectory;
+  8. a JSON line of the kernels, the nvidia-smi name/power line, and the
      last line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import re
 import subprocess
@@ -108,9 +121,9 @@ def device_profile(fn):
     return wall, acts
 
 
-def kernel_device_ms(acts):
-    """Mean device ms per launch of the CalcScore kernel, or None."""
-    hits = [v for k, v in acts.items() if "score_partials_kernel" in k]
+def kernel_device_ms(acts, kernel="score_partials_kernel"):
+    """Mean device ms per launch of ``kernel``, or None."""
+    hits = [v for k, v in acts.items() if kernel in k]
     if not hits:
         return None
     n = sum(h[0] for h in hits)
@@ -196,6 +209,114 @@ def kernel_case(name, cand, fs, ctx, cfg, coarse, device, reps, card):
     phase("kernel_check", **out, bound_us=out["bound_ms"] * 1e3, card=card)
     return out
 
+# --- map prep (slice 2) ------------------------------------------------
+
+# operations of the NFA count per covered (rectangle, pixel) pair: sub,
+# abs, compare, the 2*pi fold (sub, abs), compare; per (rectangle,
+# column) walked: the column test (add, sub, 2 compares), the two bound
+# expressions (sub, mul, add, compare each), ceil, floor, 4 range
+# compares, 2 clamps
+OPS_PER_COVERED = 6
+OPS_PER_COLUMN = 20
+
+
+def record_rect_counts(run):
+    """Run ``run()`` with every rect_counts call recorded as (deg_map,
+    scalars, all_pix, ali_pix); returns (result, calls)."""
+    import types
+    from lsdtpu_torch.mapprep import nfa as mnfa
+    onfa = mnfa.onfa
+    calls = []
+
+    def rec(deg_map, scalars):
+        out = onfa.rect_counts(deg_map, scalars)
+        calls.append((deg_map, scalars.clone(), out[0].clone(),
+                      out[1].clone()))
+        return out
+
+    # map prep reaches the kernel through mapprep/nfa.py's module
+    # reference; the wrapper itself (and its launch count) stays as is
+    mnfa.onfa = types.SimpleNamespace(rect_counts=rec)
+    try:
+        return run(), calls
+    finally:
+        mnfa.onfa = onfa
+
+
+def match_lines(a, b, tol):
+    """Greedy endpoint matching of two (n, 10) line sets (either
+    direction); the number of rows of b matched within tol px."""
+    used = np.zeros(len(a), bool)
+    n = 0
+    for rb in b:
+        d = np.minimum(np.abs(a[:, 4:8] - rb[4:8]).max(1),
+                       np.abs(a[:, [6, 7, 4, 5]] - rb[4:8]).max(1))
+        d[used] = np.inf
+        if len(a) and d.min() <= tol:
+            used[int(np.argmin(d))] = True
+            n += 1
+    return n
+
+
+def nfa_case(name, deg_map, scalars, reps, card):
+    """The NFA kernel against its plain version on one recorded batch:
+    counts, times, bound."""
+    import torch
+    from lsdtpu_torch.ops import nfa as onfa
+    got = onfa.rect_counts(deg_map, scalars)
+    torch.cuda.synchronize()
+    want = onfa.rect_counts_reference(deg_map, scalars)
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        fail(f"nfa {name}: kernel counts differ from the plain version")
+    inside = onfa.rect_inside(deg_map, scalars)
+    R = scalars.shape[0]
+    pairs = int(inside.sum())
+    distinct = int(inside.any(0).sum())
+    columns = int(inside.any(1).sum())
+    esize = deg_map.element_size()
+    nbytes = esize * (distinct + R * onfa.N_SCALARS) + R * 2 * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ((OPS_PER_COVERED * pairs + OPS_PER_COLUMN * columns)
+             / PEAK_OPS[str(deg_map.dtype).split(".")[1]] * 1e3)
+    out = dict(name=name, rects=R, covered_pairs=pairs,
+               distinct_pixels=distinct, max_abs_err=0.0,
+               bound_ms=max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations")
+    _w, acts = device_profile(
+        lambda: [onfa.rect_counts(deg_map, scalars) for _ in range(50)])
+    out["kernel_ms"] = time_cuda(lambda: onfa.rect_counts(deg_map, scalars),
+                                 reps)
+    dev_ms = kernel_device_ms(acts, "rect_counts_kernel")
+    out["ms"] = out["kernel_ms"] if dev_ms is None else dev_ms
+    out["ms_source"] = "cuda events" if dev_ms is None else "profiler"
+    out["plain_ms"] = time_cuda(
+        lambda: onfa.rect_counts_reference(deg_map, scalars), 20)
+    phase("nfa_kernel_check", **out, bound_us=out["bound_ms"] * 1e3,
+          card=card)
+    return out
+
+
+def degenerate_rects(deg_map):
+    """Packed scalars of a vertical, a horizontal and a partly
+    out-of-image rectangle on deg_map's field (inf/NaN edge slopes and
+    the INT_MIN bound conversion)."""
+    import torch
+    from lsdtpu_torch.mapprep import nfa as mnfa
+    t = np.dtype(str(deg_map.dtype).split(".")[1]).type
+    H, W = deg_map.shape
+    recs = []
+    for x1, y1, x2, y2, wid in ((40, 10, 40, H - 20, 3.0),
+                                (10, 50, W - 30, 50, 2.0),
+                                (-12, -5, 60, 30, 4.0),
+                                (W - 20, H - 10, W + 15, H + 8, 5.0)):
+        th = np.arctan2(y2 - y1, x2 - x1)
+        recs.append({k: t(v) for k, v in dict(
+            x1=x1, y1=y1, x2=x2, y2=y2, wid=wid, dx=np.cos(th),
+            dy=np.sin(th), deg=0.3, prec=0.125 * np.pi).items()})
+    with np.errstate(all="ignore"):
+        sc = np.stack([mnfa.pack_rect_scalars(r) for r in recs])
+    return torch.from_numpy(sc).to(deg_map.device)
+
 
 def main():
     import torch
@@ -223,14 +344,15 @@ def main():
 
     # --- 2. build ------------------------------------------------------
     t0 = time.perf_counter()
-    build.load_library("score")
-    log = build.BUILD_LOG.get("score", {})
-    usage = re.findall(r"(Used \d+ registers[^\n]*|\d+ bytes spill "
-                       r"stores[^\n]*)", log.get("ptxas", ""))
-    phase("build", card=repr(smi),
-          seconds=round(time.perf_counter() - t0, 3),
-          nvcc_seconds=round(log.get("seconds", 0.0), 3),
-          ptxas=repr(" | ".join(usage) or "cached"))
+    build.load_libraries(["score", "nfa"])
+    for name in ("score", "nfa"):
+        log = build.BUILD_LOG.get(name, {})
+        usage = re.findall(r"(Used \d+ registers[^\n]*|\d+ bytes spill "
+                           r"stores[^\n]*)", log.get("ptxas", ""))
+        phase("build", source=f"csrc/{name}.cu", card=repr(smi),
+              seconds=round(time.perf_counter() - t0, 3),
+              nvcc_seconds=round(log.get("seconds", 0.0), 3),
+              ptxas=repr(" | ".join(usage) or "cached"))
 
     # --- 3. scene --------------------------------------------------------
     t0 = time.perf_counter()
@@ -351,7 +473,195 @@ def main():
           score_kernel_ms=score_ms,
           top=repr([(k[:60], v[0], round(v[1] / 1e3, 3)) for k, v in top]))
 
-    # --- 6. report -------------------------------------------------------
+    # --- 6. map prep (slice 2) -------------------------------------------
+    from lsdtpu_torch.mapprep.pipeline import prepare_map
+    from lsdtpu_torch.mapprep.stats import MapPrepStats
+    from lsdtpu_torch.ops import nfa as onfa
+    grid = ds.map_value
+    cpu = torch.device("cpu")
+
+    # f64 on the card vs the CPU: the same lines, one launch per count
+    prep = {}
+    for dev in (device, cpu):
+        st = MapPrepStats()
+        onfa.rect_counts.launches = 0
+        t0 = time.perf_counter()
+        art, calls = record_rect_counts(lambda: prepare_map(
+            grid, resol, dtype=torch.float64, device=dev, stats=st))
+        got = art.lines_info.cpu().numpy()
+        prep[dev.type] = (art, st, onfa.rect_counts.launches, calls, got)
+        phase("mapprep_f64", device=dev.type, card=repr(smi),
+              seconds=round(time.perf_counter() - t0, 2), lines=len(got),
+              seeds=st.seeds, waves=st.waves, nfa_calls=st.nfa_calls,
+              nfa_rects=st.nfa_rects, syncs=st.syncs,
+              nfa_launches=onfa.rect_counts.launches)
+    (a_gpu, st_gpu, launch_gpu, calls64, l_gpu), (a_cpu, st_cpu, _l, _c,
+                                                  l_cpu) = \
+        prep["cuda"], prep["cpu"]
+    if len(l_gpu) != len(l_cpu):
+        fail(f"f64 map prep: {len(l_gpu)} lines on the card, {len(l_cpu)} "
+             "on the CPU")
+    end_diff = float(np.abs(l_gpu[:, 4:8] - l_cpu[:, 4:8]).max()) \
+        if len(l_cpu) else 0.0
+    if not end_diff <= 1e-6:
+        fail(f"f64 map prep: endpoints differ by {end_diff} px card vs CPU")
+    if not torch.equal(a_gpu.map_cache.cpu(), a_cpu.map_cache):
+        fail("f64 map prep: map_cache differs card vs CPU")
+    # every count call on the card launched the kernel; the seed walk is
+    # the CPU's, and the count calls agree up to an improver phase that
+    # one rectangle's ulp-level NFA difference can add or drop (CUDA's
+    # sin/cos/atan2 and reduction order are not the CPU's)
+    if not launch_gpu == st_gpu.nfa_calls > 0:
+        fail(f"f64 map prep: {launch_gpu} NFA launches for "
+             f"{st_gpu.nfa_calls} count calls on the card")
+    if (st_gpu.seeds, st_gpu.waves) != (st_cpu.seeds, st_cpu.waves):
+        fail("f64 map prep: the seed walks differ card vs CPU")
+    if abs(st_gpu.nfa_calls - st_cpu.nfa_calls) > max(1, st_cpu.nfa_calls
+                                                        // 100):
+        fail(f"f64 map prep: {st_gpu.nfa_calls} count calls on the card, "
+             f"{st_cpu.nfa_calls} on the CPU")
+    phase("mapprep_f64_parity", lines=len(l_gpu),
+          max_endpoint_diff_px=end_diff, map_cache="bit-exact",
+          nfa_launches=launch_gpu, card_count_calls=st_gpu.nfa_calls,
+          cpu_count_calls=st_cpu.nfa_calls, card_rects=st_gpu.nfa_rects,
+          cpu_rects=st_cpu.nfa_rects)
+
+    # f32 on the card, time to value (synchronize, lines to the host)
+    def prep32(stats):
+        art = prepare_map(grid, resol, dtype=torch.float32, device=device,
+                          stats=stats)
+        return art.lines_info.cpu().numpy()
+
+    _l32, calls32 = record_rect_counts(lambda: prep32(MapPrepStats()))
+    times, sts = [], []
+    onfa.rect_counts.launches = 0
+    for _ in range(3):
+        sts.append(MapPrepStats())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        l32 = prep32(sts[-1])
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches32 = onfa.rect_counts.launches
+    if launches32 != sum(x.nfa_calls for x in sts) or launches32 == 0:
+        fail(f"f32 map prep: {launches32} NFA launches for "
+             f"{[x.nfa_calls for x in sts]} count calls")
+    wall, acts = device_profile(lambda: prep32(MapPrepStats()))
+    busy = sum(v[1] for v in acts.values()) / 1e3
+    nfa_dev = kernel_device_ms(acts, "rect_counts_kernel")
+    st = sts[-1]
+    m25, m2 = match_lines(l32, l_gpu, 25.0), match_lines(l32, l_gpu, 2.0)
+    phase("mapprep_f32", device=repr(kind), power=repr(smi),
+          median_ms=float(np.median(times)), min_ms=min(times),
+          max_ms=max(times), lines=len(l32), lines_f64=len(l_gpu),
+          matched_25px=m25, matched_2px=m2, seeds=st.seeds, waves=st.waves,
+          nfa_launches=st.nfa_calls, nfa_rects=st.nfa_rects, syncs=st.syncs,
+          profiled_wall_ms=wall, device_busy_ms=busy,
+          device_idle_share=1.0 - busy / wall,
+          device_ops=sum(v[0] for v in acts.values()),
+          nfa_kernel_mean_device_ms=nfa_dev,
+          top=repr([(k[:50], v[0], round(v[1] / 1e3, 3)) for k, v in
+                    sorted(acts.items(), key=lambda kv: -kv[1][1])[:5]]))
+    if not (0.7 * len(l_gpu) <= len(l32) <= 1.6 * len(l_gpu)
+            and m25 >= int(0.9 * len(l_gpu)) and m2 >= int(0.7 * len(l_gpu))):
+        fail("f32 map prep lines are not structurally the f64 lines")
+
+    # the NFA kernel on the launches the main path made
+    n_checked = 0
+    for calls in (calls32, calls64):
+        for deg_map, scal, all_pix, ali_pix in calls:
+            want = onfa.rect_counts_reference(deg_map, scal)
+            if not (torch.equal(all_pix, want[0])
+                    and torch.equal(ali_pix, want[1])):
+                fail("a recorded NFA launch differs from the plain version")
+            n_checked += 1
+    for deg_map in (calls32[0][0], calls64[0][0]):
+        sc_d = degenerate_rects(deg_map)
+        got = onfa.rect_counts(deg_map, sc_d)
+        want = onfa.rect_counts_reference(deg_map, sc_d)
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+                and int(got[0].min()) > 0):
+            fail(f"degenerate rectangles ({deg_map.dtype}): kernel counts "
+                 "differ from the plain version")
+    phase("nfa_kernel_check", recorded_launches_checked=n_checked,
+          f32_launches=len(calls32), f64_launches=len(calls64),
+          degenerate="vertical, horizontal, outside: equal")
+
+    def typical(r):
+        sel = sorted((int(c[2].sum()), i) for i, c in enumerate(calls32)
+                     if c[1].shape[0] == r)
+        return sel[len(sel) // 2][1] if sel else None
+
+    most = max(range(len(calls32)), key=lambda i: int(calls32[i][2].sum()))
+    nfa_cases = []
+    for label, i in (("most_covered", most), ("typical_R1", typical(1)),
+                     ("typical_R5", typical(5))):
+        if i is None:
+            phase("nfa_kernel_check", name=label, note="'no such launch'")
+            continue
+        deg_map, scal = calls32[i][0], calls32[i][1]
+        nfa_cases.append(nfa_case(label, deg_map, scal, 200, repr(smi)))
+    phase("library", kernel="rect_counts", library_ms="null",
+          reason="'no single PyTorch call rasterizes and counts a batch of "
+                 "rectangles'")
+
+    # --- 7. the whole path: grid -> map prep -> rollout (f32) -----------
+    sc.score_partials.launches = 0
+    onfa.rect_counts.launches = 0
+    st = MapPrepStats()
+    t0 = time.perf_counter()
+    art = prepare_map(grid, resol, dtype=torch.float32, device=device,
+                      stats=st)
+    torch.cuda.synchronize()
+    prep_s = time.perf_counter() - t0
+    ctx_e = loop.make_map_context(art.lines_info, art.map_cache, resol,
+                                  ds.param.ori_x, ds.param.ori_y,
+                                  dtype=np.float32, device=device)
+    cfg_e = cfg
+    rollouts = 0
+    while True:   # warm-up; raise the candidate cap until nothing overflows
+        out = loop.run_sequence(fr32_dev, ctx_e, cfg_e, device=device)
+        rollouts += 1
+        over = out["candidate_overflow"].cpu().numpy()
+        K = cfg_e.shapes.max_candidates
+        if not over.any() or K >= 16384:
+            break
+        cfg_e = dataclasses.replace(cfg_e, shapes=dataclasses.replace(
+            cfg_e.shapes, max_candidates=2 * K))
+    times = []
+    for _ in range(REPEATS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = loop.run_sequence(fr32_dev, ctx_e, cfg_e, device=device)
+        res = {k: v.cpu().numpy() for k, v in out.items()}
+        times.append((time.perf_counter() - t0) * 1e3)
+        rollouts += 1
+    launches_e = {"rect_counts": onfa.rect_counts.launches,
+                  "score_partials": sc.score_partials.launches}
+    if launches_e["rect_counts"] != st.nfa_calls or st.nfa_calls == 0:
+        fail(f"end to end: {launches_e['rect_counts']} NFA launches for "
+             f"{st.nfa_calls} count calls")
+    if launches_e["score_partials"] != F * rollouts:
+        fail(f"end to end: score_partials launched "
+             f"{launches_e['score_partials']} times in {rollouts} rollouts")
+    tracked = np.isfinite(res["score"]) & ~np.isnan(res["pose"]).any(1)
+    if not tracked.any():
+        fail("the end-to-end f32 rollout on LSD map lines tracked no frame")
+    world = res["pose"][:, :2] * resol + np.array([ds.param.ori_x,
+                                                   ds.param.ori_y])
+    err = np.linalg.norm(world[tracked] - scene.true_pos[tracked], axis=1)
+    phase("end_to_end_f32", device=repr(kind), power=repr(smi),
+          map_prep_s=prep_s, map_lines=int(art.lines_info.shape[0]),
+          max_candidates=cfg_e.shapes.max_candidates,
+          max_candidates_raised=cfg_e.shapes.max_candidates
+          != cfg.shapes.max_candidates,
+          candidate_overflow_frames=int(res["candidate_overflow"].sum()),
+          rollout_median_ms=float(np.median(times)), min_ms=min(times),
+          max_ms=max(times), frames=F, tracked=int(tracked.sum()),
+          rmse_m=float(np.sqrt(np.mean(err ** 2))),
+          nfa_launches=launches_e["rect_counts"],
+          score_launches=launches_e["score_partials"])
+
+    # --- 8. report -------------------------------------------------------
     main_case = cases[1]      # relock frame as the main path scores it
     kern = {
         "name": "score_partials", "route": "cuda",
@@ -365,7 +675,19 @@ def main():
         "library_ms": None,
         "cases": cases,
     }
-    print(json.dumps({"kernels": [kern]}), flush=True)
+    top = nfa_cases[0]        # the batch with the most covered pixels
+    nfa_kern = {
+        "name": "rect_counts", "route": "cuda",
+        "source": "lsdtpu_torch/csrc/nfa.cu",
+        "replaces": "lsdtpu/ops/nfa_pallas.py:87",
+        "checked": True, "launches": launches_e["rect_counts"],
+        "max_abs_err": 0.0, "ms": top["ms"], "ms_source": top["ms_source"],
+        "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
+        "bound_by": top["bound_by"], "library_ms": None,
+        "mean_device_ms_per_launch": nfa_dev,
+        "cases": nfa_cases,
+    }
+    print(json.dumps({"kernels": [kern, nfa_kern]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -23,10 +23,13 @@ class LSDConfig:
     den_thre: float = 0.7     # density threshold (lsd_denThre)
     pse_bin: int = 1024       # pseudo-sort bins (pseBin)
     # region-growth order: "fifo" (the reference's exact FIFO acceptance
-    # order) or "wave" (wave-synchronous; line sets structural).  Map
-    # prep is not ported yet: the port takes map lines as inputs.
+    # order) or "wave" (wave-synchronous; line sets structural).  The
+    # port's map prep (mapprep/pipeline.py) grows in waves; "fifo" is
+    # not ported yet and raises NotImplementedError there.
     growth: str = "fifo"
-    # NFA rasterize+count backend of the map-prep slice (not ported yet)
+    # NFA rasterize+count backend name, kept for config compatibility
+    # with the reference package; the port does not read it (the
+    # rect_counts kernel on the card, its plain version on the CPU)
     nfa_kernel: str = "xla"
 
 

@@ -1,0 +1,195 @@
+"""Line Segment Detector: the sequential seed walk as a host loop over
+device passes (counterpart of lsdtpu/mapprep/lsd.py, wave growth).
+
+Reference: myLineSegmentDetector, LSD/myLSD.cpp:129-376.  As in the
+reference package:
+
+* the next seed is the live pixel of the highest quantised gradient
+  bin, the row-major first among ties (a two-stage argmax over the
+  live mask, one device -> host read per seed);
+* a region grows in waves: each wave accepts every 8-neighbour that
+  passes the angle test, then the running circular mean is recomputed
+  over the accepted set, until a wave accepts nothing (one read per
+  wave);
+* rectangles are masked full-field moments (rect.py), and the NFA
+  counts go through the rect_counts kernel (nfa.py).
+
+The in-place 1<->255 input remap (myLSD.cpp:135-142) is functional:
+callers get the remapped map back beside the lines.  The reference's
+exact FIFO growth order (``growth="fifo"``) is not ported yet
+(ROADMAP.md, Queue 3) and raises.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from lsdtpu_torch import geometry as geo
+from lsdtpu_torch import resolve_device
+from lsdtpu_torch.mapprep import nfa as mnfa
+from lsdtpu_torch.mapprep import rect as mrect
+from lsdtpu_torch.mapprep.gaussian import gaussian_sampler
+from lsdtpu_torch.mapprep.gradient import gradient_field
+from lsdtpu_torch.mapprep.stats import MapPrepStats
+
+PI = math.pi
+
+
+def _dilate8(mask):
+    """8-neighbour dilation: a 3x3 max pool of the 0/1 mask (exact)."""
+    m = mask.to(torch.float32)[None, None]
+    return F.max_pool2d(m, 3, 1, 1)[0, 0] > 0.0
+
+
+def _grow(seed_y: int, seed_x: int, seed_deg, deg_thre, free, deg_map,
+          sin_map, cos_map, stats: MapPrepStats):
+    """Wave-synchronous region growth (reference: RegionGrower,
+    myLSD.cpp:491-590).  free: the pixels growth may enter (used != 1;
+    NFA-rejected value-2 pixels regrow, myLSD.cpp:534); sin_map/cos_map:
+    sin/cos of deg_map.  Returns (cur mask, reg_deg (), pixel count)."""
+    cur = torch.zeros(deg_map.shape, dtype=torch.bool, device=deg_map.device)
+    cur[seed_y, seed_x] = True
+    sin = torch.sin(seed_deg)
+    cos = torch.cos(seed_deg)
+    deg = torch.atan2(sin, cos)
+    n = 1
+    while True:
+        stats.waves += 1
+        cand = _dilate8(cur) & ~cur & free
+        dif = torch.abs(deg - deg_map)
+        dif = torch.where(dif > PI * 1.5, torch.abs(dif - 2 * PI), dif)
+        acc = cand & (dif < deg_thre)
+        n_acc = acc.sum()
+        sin = sin + torch.where(acc, sin_map, 0.0).sum()
+        cos = cos + torch.where(acc, cos_map, 0.0).sum()
+        cur = cur | acc
+        deg = torch.atan2(sin, cos)
+        k = int(stats.to_host(n_acc))
+        if k == 0:
+            return cur, deg, n
+        n += k
+
+
+def line_segment_detector(map_gray, sca: float = 0.3, sig: float = 0.6,
+                          ang_thre: float = 22.5, den_thre: float = 0.7,
+                          pse_bin: int = 1024, max_lines: int = 256,
+                          growth: str = "wave", dtype=torch.float32,
+                          device="cuda",
+                          stats: Optional[MapPrepStats] = None):
+    """map_gray: (row, col) occupancy {0, 1, 255} (numpy or tensor).
+    Returns (lines (max_lines, 10), mask (max_lines,), n_lines,
+    remapped_map), tensors on ``device``; n_lines is the raw count,
+    which exceeds max_lines when lines were dropped.
+
+    linesInfo rows are in structLinesInfo order (geometry.py) with
+    endpoints rescaled to the full-resolution map frame
+    (myLSD.cpp:252-258).  dtype is the working float type (float32, as
+    the reference package without x64, or float64); ``stats``, when
+    given, receives the run's counters."""
+    if growth != "wave":
+        raise NotImplementedError(
+            f"growth={growth!r}: only wave growth is ported; the exact "
+            "FIFO order waits for a later slice (ROADMAP.md, Queue 3)")
+    dev = resolve_device(device)
+    stats = MapPrepStats() if stats is None else stats
+    g = torch.as_tensor(map_gray, device=dev)
+
+    # in-place 1<->255 remap skipping row/col 0 (myLSD.cpp:135-142)
+    remapped = g.clone()
+    sub = g[1:, 1:]
+    remapped[1:, 1:] = torch.where(sub == 1, 255, torch.where(sub == 255, 0,
+                                                              sub)).to(g.dtype)
+
+    gauss = gaussian_sampler(remapped.to(dtype), sca, sig)
+    new_row, new_col = gauss.shape
+    deg_thre = ang_thre / 180.0 * PI
+    mag, deg_map, prebanned, max_grad = gradient_field(gauss, deg_thre)
+    log_nt = 5 * (math.log10(new_row) + math.log10(new_col)) / 2.0
+    ends, n = _seed_walk(mag, deg_map, prebanned, max_grad, log_nt, sca,
+                         ang_thre, den_thre, pse_bin, max_lines, stats)
+    lines = torch.zeros((max_lines, 4), dtype=dtype, device=dev)
+    if ends:
+        lines[:len(ends)] = torch.from_numpy(np.stack(ends)).to(dev)
+    mask = torch.arange(max_lines, device=dev) < n
+    infos = geo.lines_info_from_endpoints(lines[:, 0], lines[:, 1],
+                                          lines[:, 2], lines[:, 3])
+    infos = torch.where(mask[:, None], infos, 0.0)
+    return infos, mask, n, remapped
+
+
+def _seed_walk(mag, deg_map, prebanned, max_grad, log_nt: float, sca: float,
+               ang_thre: float, den_thre: float, pse_bin: int,
+               max_lines: int, stats: MapPrepStats):
+    """The sequential seeded region extraction loop (myLSD.cpp:219-272).
+    Returns (endpoint rows (at most max_lines) of numpy scalars in the
+    working dtype, raw line count)."""
+    H, W = mag.shape
+    reg_thre = -log_nt / math.log10(ang_thre / 180.0)
+    ali_pro = ang_thre / 180.0
+    deg_thre = ang_thre / 180.0 * PI
+
+    # stable-descending seed priority (quantised bin, row-major ties)
+    zoom = pse_bin / max_grad
+    q = torch.clamp(torch.floor(mag * zoom), max=float(pse_bin))
+    # the max-gradient pixel sits exactly on the top bin boundary
+    # (mag*zoom == pse_bin in exact math); rounding can push it to
+    # pse_bin-1 and reorder the whole seed walk - pin it
+    q = torch.where(mag == max_grad, float(pse_bin), q)
+    used = torch.where(prebanned, 1, 0).to(torch.int8)
+    # q of the live seeds (q >= 1, not visited, used == 0), else -1
+    qlive = torch.where((q >= 1.0) & ~prebanned, q, -1.0)
+    sin_map = torch.sin(deg_map)
+    cos_map = torch.cos(deg_map)
+    ends, n_lines = [], 0
+
+    while True:
+        # two-stage argmax: the highest live bin, then the row-major
+        # first pixel in it
+        qmax = qlive.max()
+        flat = torch.argmax((qlive == qmax).to(torch.uint8).reshape(-1))
+        top, flat = stats.to_host(torch.stack([qmax.double(), flat.double()]))
+        if top < 1.0:
+            return ends, n_lines
+        stats.seeds += 1
+        sy, sx = divmod(int(flat), W)
+        qlive[sy, sx] = -1.0
+        free = used != 1
+        seed_deg = deg_map[sy, sx]
+        cur, reg_deg, size = _grow(sy, sx, seed_deg, deg_thre, free, deg_map,
+                                   sin_map, cos_map, stats)
+        if size < reg_thre:
+            continue
+        rec = mrect.rectangle_converter(cur, reg_deg, mag, ali_pro, deg_thre,
+                                        stats)
+
+        def grow_fn(cen_deg, new_thre):
+            return _grow(sy, sx, cen_deg, new_thre, free, deg_map, sin_map,
+                         cos_map, stats)
+
+        ok, cur2, rec2 = mrect.refiner(sx, sy, cur, size, rec, mag, deg_map,
+                                       den_thre, deg_thre, grow_fn, stats)
+        if not ok:
+            continue
+        log_nfa, rec3 = mnfa.rectangle_improver(rec2, deg_map, log_nt, stats)
+        accept = bool(log_nfa > 0.0)
+        # accepted -> used=1; rejected -> used=2 (regrowable)
+        used = torch.where(cur2, 1 if accept else 2, used).to(torch.int8)
+        qlive = torch.where(cur2, -1.0, qlive)
+        if not accept:
+            continue
+        if n_lines < max_lines:
+            # rescale to the full map frame (myLSD.cpp:252-258)
+            t = type(rec3["x1"])
+            xy = [rec3[k] for k in ("x1", "y1", "x2", "y2")]
+            if sca != 1:
+                one, s = t(1.0), t(sca)
+                xy = [(v - one) / s + one for v in xy]
+            ends.append(np.array(xy, dtype=t))
+        # the count keeps growing past the cap so callers can detect
+        # overflow (n_lines > max_lines)
+        n_lines += 1

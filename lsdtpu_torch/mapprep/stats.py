@@ -1,0 +1,24 @@
+"""Counters of one map-prep run: how often the host loop waited on the
+device and what it launched.  The caller creates one and passes it
+down; chip_smoke.py reports them per map."""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass
+class MapPrepStats:
+    seeds: int = 0       # seed-walk iterations (seed pixels visited)
+    waves: int = 0       # region-growth waves
+    nfa_calls: int = 0   # rect_counts calls (kernel launches on the card)
+    nfa_rects: int = 0   # rectangles counted over all calls
+    syncs: int = 0       # device -> host reads the loop waited on
+
+    def to_host(self, t: torch.Tensor) -> np.ndarray:
+        """``t`` as a numpy array: one device -> host read, counted."""
+        self.syncs += 1
+        return t.cpu().numpy()

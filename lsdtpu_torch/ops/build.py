@@ -16,6 +16,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[1]
@@ -64,3 +65,11 @@ def load_library(name: str) -> ctypes.CDLL:
                            "ptxas": res.stderr.strip()}
     _LIBS[name] = ctypes.CDLL(str(out))
     return _LIBS[name]
+
+
+def load_libraries(names) -> None:
+    """Build and load ``csrc/<name>.cu`` for every name: one nvcc per
+    source, all started together."""
+    with ThreadPoolExecutor(max(1, len(names))) as ex:
+        for fut in [ex.submit(load_library, n) for n in names]:
+            fut.result()

@@ -3,10 +3,10 @@
 The system has no model weights: its state is the map context (lines,
 distance field, map geometry) and the track carry (filter state and the
 main loop's bookkeeping).  These functions take the fields of the
-reference package's MapContext / TrackState as numpy arrays
-(``np.asarray`` on each field) and build the port's, or give the
-port's TrackState back as numpy arrays, so both packages can run from
-the same state.
+reference package's MapArtifacts / MapContext / TrackState as numpy
+arrays (``np.asarray`` on each field) and build the port's, or give
+the port's TrackState back as numpy arrays, so both packages can run
+from the same state.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from lsdtpu_torch import resolve_device
+from lsdtpu_torch.mapprep.pipeline import MapArtifacts
 from lsdtpu_torch.runtime.loop import MapContext, TrackState
 
 
@@ -47,6 +48,15 @@ def map_context_from_numpy(lines, lines_mask, cache, rows, cols, resol,
         cache=_tensor(cache, dev).contiguous(),
         rows=int(np.asarray(rows)), cols=int(np.asarray(cols)),
         resol=scalar(resol), ori_x=scalar(ori_x), ori_y=scalar(ori_y))
+
+
+def map_artifacts_from_numpy(lines_info, map_cache,
+                             device="cuda") -> MapArtifacts:
+    """The port's MapArtifacts from the reference MapArtifacts' fields
+    (lines_info (n, 10), map_cache (H, W)) as numpy arrays."""
+    dev = resolve_device(device)
+    return MapArtifacts(lines_info=_tensor(lines_info, dev),
+                        map_cache=_tensor(map_cache, dev).contiguous())
 
 
 def track_state_from_numpy(kalman_x, kalman_P, last_pose, ang_sum, ang_cnt,

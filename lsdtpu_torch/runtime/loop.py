@@ -343,12 +343,13 @@ def make_map_context(map_lines, map_cache, resol: float, ori_x: float,
     """Pad map artifacts into a MapContext on ``device``.
 
     map_lines: (k, 10) linesInfo rows; map_cache: (H, W) field (numpy
-    or tensor).  max_map_lines None sizes the pad to the line count
-    rounded up to a multiple of 64 (min 64); padding never passes the
-    gates.  cache_dtype: "f32" (the float field at ``dtype``)."""
+    arrays or tensors, e.g. mapprep.prepare_map's artifacts).
+    max_map_lines None sizes the pad to the line count rounded up to a
+    multiple of 64 (min 64); padding never passes the gates.
+    cache_dtype: "f32" (the float field at ``dtype``)."""
     dev = resolve_device(device)
     dt = torch_dtype(dtype)
-    map_lines = np.asarray(map_lines)
+    map_lines = torch.as_tensor(map_lines)
     k = int(map_lines.shape[0])
     M = max(64, -(-k // 64) * 64) if max_map_lines is None else max_map_lines
     if k > M:
@@ -356,7 +357,7 @@ def make_map_context(map_lines, map_cache, resol: float, ori_x: float,
                          "raise the cap (or pass max_map_lines=None "
                          "to auto-size)")
     lines = torch.zeros((M, 10), dtype=dt, device=dev)
-    lines[:k] = torch.as_tensor(map_lines, device=dev).to(dt)
+    lines[:k] = map_lines.to(dev, dt)
     mask = torch.arange(M, device=dev) < k
     cache = torch.as_tensor(map_cache, device=dev)
     return MapContext(

@@ -1,10 +1,13 @@
-"""The CalcScore kernel (lsdtpu_torch/csrc/score.cu) against its plain
-PyTorch version on the card.  Marked ``cuda``: each test decides inside
-itself whether a card is present and skips where there is none.  Run on
-the card with ``python -m pytest -m cuda tests/test_torch_*.py``.
+"""The CalcScore kernel (lsdtpu_torch/csrc/score.cu) and the NFA
+rect_counts kernel (lsdtpu_torch/csrc/nfa.cu) against their plain
+PyTorch versions on the card, and map prep on the card against the CPU.
+Marked ``cuda``: each test decides inside itself whether a card is
+present and skips where there is none.  Run on the card with
+``python -m pytest -m cuda tests/test_torch_*.py``.
 
 Tiers: counts exact; f64 sums rtol 1e-12; f32 sums rtol/atol 2e-6
-(different summation order)."""
+(different summation order); f64 map lines card vs CPU within 1e-6 px
+(CUDA's sin/cos/atan2 and reduction order differ from the CPU's)."""
 
 import numpy as np
 import pytest
@@ -86,3 +89,75 @@ def test_kernel_rejects_bad_inputs_on_card():
     with pytest.raises(ValueError):
         sc.score_partials(f, None, n, v.cpu(), v, n, c, 0, 4, 4, 1.0, 10.0,
                           1.0)
+
+
+def _nfa_cases(dtype):
+    """(deg_map, packed scalars) on the card: test_nfa_pallas's 27
+    rectangles over its 48x72 field, and 64 rectangles over a 293x432
+    field (the data1-sized map's downsampled field)."""
+    from lsdtpu_torch.mapprep import nfa as tnfa
+    from test_nfa_pallas import _random_rects
+    out = []
+    for (H, W), n, seed in (((48, 72), 24, 0), ((293, 432), 61, 1)):
+        rng = np.random.default_rng(seed)
+        deg = rng.uniform(-np.pi, np.pi, size=(H, W)).astype(dtype)
+        with np.errstate(all="ignore"):
+            sc = np.stack([tnfa.pack_rect_scalars(
+                {k: dtype(v) for k, v in r.items()})
+                for r in _random_rects(H, W, n=n, seed=seed)])
+        out.append((torch.from_numpy(deg).cuda(),
+                    torch.from_numpy(sc.astype(dtype)).cuda()))
+    return out
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_nfa_kernel_matches_plain_on_card(dtype):
+    _need_card()
+    from lsdtpu_torch.ops import nfa as onfa
+    for deg, sc in _nfa_cases(dtype):
+        before = onfa.rect_counts.launches
+        got = onfa.rect_counts(deg, sc)
+        torch.cuda.synchronize()
+        assert onfa.rect_counts.launches == before + 1
+        want = onfa.rect_counts_reference(deg, sc)
+        for g, w in zip(got, want):
+            assert g.dtype == torch.int32 and torch.equal(g, w)
+        assert int(got[0].max()) > 0
+
+
+def test_nfa_kernel_rejects_bad_inputs_on_card():
+    _need_card()
+    from lsdtpu_torch.ops import nfa as onfa
+    d = torch.zeros((8, 8), device="cuda")
+    s = torch.zeros((2, 16), device="cuda")
+    with pytest.raises(TypeError):
+        onfa.rect_counts(d, s.double())
+    with pytest.raises(ValueError):
+        onfa.rect_counts(d[:, ::2], s)
+    with pytest.raises(ValueError):
+        onfa.rect_counts(d, s.cpu())
+
+
+def test_prepare_map_card_matches_cpu():
+    """A small map through the port's prepare_map on the card and on the
+    CPU in f64: the same lines (endpoints within 1e-6 px), the same
+    distance field, and one kernel launch per count call."""
+    _need_card()
+    from lsdtpu_torch.mapprep.pipeline import prepare_map
+    from lsdtpu_torch.mapprep.stats import MapPrepStats
+    from lsdtpu_torch.ops import nfa as onfa
+    from test_fuzz_parity import synth_map
+    g = synth_map(1)
+    st_cpu, st_gpu = MapPrepStats(), MapPrepStats()
+    cpu = prepare_map(g, 0.05, dtype=torch.float64, device="cpu",
+                      stats=st_cpu)
+    before = onfa.rect_counts.launches
+    gpu = prepare_map(g, 0.05, dtype=torch.float64, device="cuda",
+                      stats=st_gpu)
+    assert gpu.lines_info.is_cuda and gpu.map_cache.is_cuda
+    assert onfa.rect_counts.launches - before == st_gpu.nfa_calls \
+        == st_cpu.nfa_calls
+    assert torch.equal(gpu.map_cache.cpu(), cpu.map_cache)
+    a, b = gpu.lines_info.cpu().numpy(), cpu.lines_info.numpy()
+    assert a.shape == b.shape
+    np.testing.assert_allclose(a[:, 4:8], b[:, 4:8], rtol=0, atol=1e-6)

@@ -5,13 +5,19 @@ oracle) go through both packages, and numpy arrays carry the data
 between them."""
 
 import functools
+import math
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
 
+from lsdtpu import geometry as jgeo
+from lsdtpu.mapprep import lsd as jlsd
 from lsdtpu.oracle import driver as odrv
 from lsdtpu.runtime import loop as jloop
+from lsdtpu_torch.mapprep.gaussian import gaussian_sampler
+from lsdtpu_torch.mapprep.gradient import gradient_field
 from lsdtpu_torch.runtime import loop as tloop
 from test_fuzz_parity import synth_dataset
 
@@ -63,3 +69,73 @@ def port_candidates(jc):
     return Candidates(**{k: torch.as_tensor(np_(getattr(jc, k))) for k in
                          ("ca", "sa", "sx", "sy", "mx", "my", "pose", "mask",
                           "count")})
+
+
+def remap(grid):
+    """The LSD's 1<->255 input remap (rows/cols >= 1), in numpy."""
+    out = grid.copy()
+    sub = grid[1:, 1:]
+    out[1:, 1:] = np.where(sub == 1, 255, np.where(sub == 255, 0, sub))
+    return out
+
+
+def port_field(grid):
+    """The port's f64 (mag, deg, banned, max_grad) of an occupancy grid,
+    on the CPU: the LSD's blur and gradient at the default parameters."""
+    gauss = gaussian_sampler(torch.from_numpy(remap(grid)).to(torch.float64))
+    return gradient_field(gauss, 22.5 / 180.0 * math.pi)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_seed_walk(shape, max_lines):
+    log_nt = 5 * (math.log10(shape[0]) + math.log10(shape[1])) / 2.0
+    return jax.jit(lambda m, d, b, mg: jlsd._seed_walk(
+        m, d, b, mg, log_nt, 0.3, 22.5, 0.7, 1024, max_lines, "wave", "xla",
+        jnp.float64))
+
+
+def jax_lines_on_field(field, max_lines=256):
+    """The reference package's seed walk (wave growth, f64) run on a
+    given field (numpy or tensors): its valid linesInfo rows, (n, 10)."""
+    m, d, b, mg = (np_(x) for x in field)
+    ends, n = _jax_seed_walk(m.shape, max_lines)(m, d, b, mg)
+    n = int(n)
+    assert n <= max_lines
+    e = np.asarray(ends)[:n]
+    return np.asarray(jgeo.lines_info_from_endpoints(
+        jnp.asarray(e[:, 0]), jnp.asarray(e[:, 1]), jnp.asarray(e[:, 2]),
+        jnp.asarray(e[:, 3])))
+
+
+def match_lines(a, b, tol):
+    """Greedy endpoint matching between two (n, 10) line sets (either
+    direction of each line); the number of rows of b matched."""
+    used = np.zeros(len(a), bool)
+    n = 0
+    for rb in b:
+        d = np.minimum(np.abs(a[:, 4:8] - rb[4:8]).max(1),
+                       np.abs(a[:, [6, 7, 4, 5]] - rb[4:8]).max(1))
+        d[used] = np.inf
+        i = int(np.argmin(d)) if len(a) else -1
+        if i >= 0 and d[i] <= tol:
+            used[i] = True
+            n += 1
+    return n
+
+
+def assert_structural(got, want):
+    """The reference package's wave-vs-oracle line-set tier
+    (tests/test_fuzz_parity.py:139-142): count within 0.7-1.6x, 90%
+    matched at 25 px, 70% at 2 px."""
+    assert 0.7 * len(want) <= len(got) <= 1.6 * len(want)
+    assert match_lines(got, want, 25.0) >= int(0.9 * len(want))
+    assert match_lines(got, want, 2.0) >= int(0.7 * len(want))
+
+
+def assert_lines_close(got, want):
+    """Line sets row for row: endpoints within 1e-6 px; the derived
+    linesInfo columns also within rel 1e-9 (k and b of a near-vertical
+    line scale the endpoints' ulps by |k|)."""
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got[:, 4:8], want[:, 4:8], rtol=0, atol=1e-6)
+    np.testing.assert_allclose(got, want, rtol=1e-9, atol=1e-6)
