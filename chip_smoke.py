@@ -16,10 +16,12 @@ its own line; any failure exits non-zero before the last line:
      started together (seconds, ptxas registers/spills);
   3. scene: the synthetic scene; its distance field from the port's
      create_map_cache on the card; its map lines from the wall segments;
-  4. kernel check: the CalcScore kernel against its plain PyTorch
-     version on the card, at a relock frame (~1000 candidates) and a
-     tracking frame (~40), on the pruned and the unpruned path, with
-     times, the bound and the launch counts;
+  4. kernel check: the launch floor (the profiler's device time of a
+     one-element PyTorch elementwise kernel), then the CalcScore kernel
+     against its plain PyTorch version on the card, at a relock frame
+     (~1000 candidates) and a tracking frame (~20), on the pruned and the
+     unpruned path, with times, the bound, the floor, the launch counts
+     and 50 repeated launches bitwise equal to the first;
   5. rollout: f64 on the card vs the CPU (identical decisions), then f32
      on the card, 5 repeats timed to value, with the kernel's launch
      count checked against one launch per frame (wall-segment lines, as
@@ -29,10 +31,14 @@ its own line; any failure exits non-zero before the last line:
      call), f32 on the card timed to value (median of 3) with the seed
      walk's counters and the device idle share, then the NFA kernel
      against its plain version on every launch the two runs made, on
-     degenerate rectangles, and timed on three recorded batches;
+     degenerate rectangles, and timed (with the bitwise repeat check) on
+     three recorded batches;
   7. end to end: grid -> prepare_map (f32, card) -> make_map_context ->
      run_sequence of the 279 frames, 5 repeats, tracked frames and the
-     position error against the true trajectory;
+     position error against the true trajectory; then the CalcScore
+     kernel at that path's relock frame (the port's own LSD lines, its
+     K cap of 4096: the main path's largest launch), pruned and
+     unpruned;
   8. a JSON line of the kernels, the nvidia-smi name/power line, and the
      last line {"ok": true, "device": {...}}.
 """
@@ -130,7 +136,34 @@ def kernel_device_ms(acts, kernel="score_partials_kernel"):
     return sum(h[1] for h in hits) / n / 1e3
 
 
-def kernel_case(name, cand, fs, ctx, cfg, coarse, device, reps, card):
+def launch_floor_ms(reps=50):
+    """Device ms of the smallest launch: the profiler's mean time of a
+    one-element PyTorch elementwise kernel."""
+    import torch
+    x = torch.zeros(1, device="cuda")
+    x.add_(1.0)
+    _w, acts = device_profile(lambda: [x.add_(1.0) for _ in range(reps)])
+    hits = [v for v in acts.values() if v[0] == reps]
+    if not hits:
+        fail(f"launch floor: no device kernel launched {reps} times "
+             f"({sorted(acts)})")
+    return hits[0][1] / reps / 1e3
+
+
+def repeats_bitwise(name, fn, first, reps=50):
+    """Profile ``reps`` launches of fn; fail unless every output equals
+    ``first`` bit for bit.  Returns the profiler's activities."""
+    import torch
+    runs = []
+    _w, acts = device_profile(lambda: runs.extend(fn() for _ in range(reps)))
+    for r in runs:
+        if not all(torch.equal(a, b) for a, b in zip(first, r)):
+            fail(f"{name}: {reps} repeated launches are not bitwise equal")
+    return acts
+
+
+def kernel_case(name, cand, fs, ctx, cfg, coarse, device, reps, card,
+                floor_ms):
     """Kernel vs plain on one frame's inputs; returns the measurements."""
     import torch
     from lsdtpu_torch.match import associate as assoc
@@ -198,16 +231,65 @@ def kernel_case(name, cand, fs, ctx, cfg, coarse, device, reps, card):
                check_launches=sc.score_partials.launches - before)
     # device time per launch from the profiler; CUDA events over
     # back-to-back launches also include the host's launch gaps
-    _w, acts = device_profile(
-        lambda: [sc.score_partials(*args) for _ in range(50)])
+    acts = repeats_bitwise(name, lambda: sc.score_partials(*args), got)
+    out["repeats_bitwise"] = 50
     out["kernel_ms"] = time_cuda(lambda: sc.score_partials(*args), reps)
     dev_ms = kernel_device_ms(acts)
     out["ms"] = out["kernel_ms"] if dev_ms is None else dev_ms
     out["ms_source"] = "cuda events" if dev_ms is None else "profiler"
     out["plain_ms"] = time_cuda(
         lambda: sc.score_partials_reference(*args), max(5, reps // 20))
+    out["floor_ms"] = floor_ms
     phase("kernel_check", **out, bound_us=out["bound_ms"] * 1e3, card=card)
     return out
+
+
+def make_scene():
+    """The synthetic scene at data1's extent (seed SCENE_SEED)."""
+    from lsdtpu_torch.io import synth
+    return synth.synth_dataset(SCENE_SEED, F=FRAMES, H=979, W=1440,
+                               resol=0.025, rmax=13.0, n_walls=46,
+                               clear_m=2.5, wall_scale=2.5)
+
+
+def score_frame_cases(scene, ctx, cfg, device, card, floor_ms, prefix="",
+                      frames=("relock", "tracking")):
+    """kernel_case on the unpruned and the pruned path at the relock
+    frame (frame 0, no prior pose: the full sweep) and a tracking frame
+    (frame 1 from the true pose), as the main path builds them."""
+    import torch
+    from lsdtpu_torch.match import associate as assoc
+    from lsdtpu_torch.runtime import loop
+    from lsdtpu_torch.io import synth
+    ds = scene.dataset
+    sh = cfg.shapes
+    dt = ctx.cache.dtype
+    coarse = loop.prepare_coarse(ctx, cfg)
+    fr = loop.stack_frames(ds, dtype=np.dtype(str(dt).split(".")[1]).type,
+                           max_frames=2)
+    truth = synth.true_pose_px(scene)
+    cases = []
+    for f, frame in ((0, "relock"), (1, "tracking")):
+        if frame not in frames:
+            continue
+        inp = tuple(torch.as_tensor(fr[k][f], device=device)
+                    for k in loop._FRAME_KEYS)
+        fs = loop.featurize_stage(inp, ctx, cfg)
+        last_pose = (loop.init_state(dt, device).last_pose if f == 0 else
+                     torch.tensor([truth[f][0], truth[f][1], 0.0], dtype=dt,
+                                  device=device))
+        cand = assoc.generate_candidates(
+            fs.lines, fs.lines_mask, ctx.lines, ctx.lines_mask,
+            loop.geo.c_round(fs.lidar_pos), last_pose, sh.max_candidates,
+            cfg.match.ignore_scan_length, cfg.match.scan_to_map_diff,
+            cfg.match.max_esti_dist)
+        for path in ("unpruned", "pruned"):
+            c = kernel_case(f"{prefix}{frame}_{path}", cand, fs, ctx, cfg,
+                            coarse, device, reps=200, card=card,
+                            floor_ms=floor_ms)
+            c["k_cap"] = sh.max_candidates
+            cases.append(c)
+    return cases
 
 # --- map prep (slice 2) ------------------------------------------------
 
@@ -258,7 +340,7 @@ def match_lines(a, b, tol):
     return n
 
 
-def nfa_case(name, deg_map, scalars, reps, card):
+def nfa_case(name, deg_map, scalars, reps, card, floor_ms):
     """The NFA kernel against its plain version on one recorded batch:
     counts, times, bound."""
     import torch
@@ -282,8 +364,9 @@ def nfa_case(name, deg_map, scalars, reps, card):
                distinct_pixels=distinct, max_abs_err=0.0,
                bound_ms=max(t_bytes, t_ops),
                bound_by="bytes" if t_bytes >= t_ops else "operations")
-    _w, acts = device_profile(
-        lambda: [onfa.rect_counts(deg_map, scalars) for _ in range(50)])
+    acts = repeats_bitwise(f"nfa {name}",
+                           lambda: onfa.rect_counts(deg_map, scalars), got)
+    out["repeats_bitwise"] = 50
     out["kernel_ms"] = time_cuda(lambda: onfa.rect_counts(deg_map, scalars),
                                  reps)
     dev_ms = kernel_device_ms(acts, "rect_counts_kernel")
@@ -291,8 +374,29 @@ def nfa_case(name, deg_map, scalars, reps, card):
     out["ms_source"] = "cuda events" if dev_ms is None else "profiler"
     out["plain_ms"] = time_cuda(
         lambda: onfa.rect_counts_reference(deg_map, scalars), 20)
+    out["floor_ms"] = floor_ms
     phase("nfa_kernel_check", **out, bound_us=out["bound_ms"] * 1e3,
           card=card)
+    return out
+
+
+def nfa_cases(calls, card, floor_ms):
+    """nfa_case on three recorded launches of an f32 map prep: the one
+    covering the most pixels and the median R = 1 and R = 5 launches."""
+    def typical(r):
+        sel = sorted((int(c[2].sum()), i) for i, c in enumerate(calls)
+                     if c[1].shape[0] == r)
+        return sel[len(sel) // 2][1] if sel else None
+
+    most = max(range(len(calls)), key=lambda i: int(calls[i][2].sum()))
+    out = []
+    for label, i in (("most_covered", most), ("typical_R1", typical(1)),
+                     ("typical_R5", typical(5))):
+        if i is None:
+            phase("nfa_kernel_check", name=label, note="'no such launch'")
+            continue
+        out.append(nfa_case(label, calls[i][0], calls[i][1], 200, card,
+                            floor_ms))
     return out
 
 
@@ -337,7 +441,6 @@ def main():
     from lsdtpu_torch.config import DEFAULT
     from lsdtpu_torch.io import synth
     from lsdtpu_torch.mapprep.distance import create_map_cache
-    from lsdtpu_torch.match import associate as assoc
     from lsdtpu_torch.ops import build
     from lsdtpu_torch.ops import score as sc
     from lsdtpu_torch.runtime import loop
@@ -356,9 +459,7 @@ def main():
 
     # --- 3. scene --------------------------------------------------------
     t0 = time.perf_counter()
-    scene = synth.synth_dataset(SCENE_SEED, F=FRAMES, H=979, W=1440,
-                                resol=0.025, rmax=13.0, n_walls=46,
-                                clear_m=2.5, wall_scale=2.5)
+    scene = make_scene()
     ds = scene.dataset
     F, resol = len(ds.frames), ds.param.resol
     H, W = ds.map_value.shape
@@ -375,32 +476,15 @@ def main():
           map_cache_s=round(t_cache, 3),
           cache_at_cap=round(float((cache64 >= 1.0).float().mean()), 4))
     cfg = DEFAULT
-    sh = cfg.shapes
 
     # --- 4. kernel check at the main path's shapes (f32) ------------------
+    floor_ms = launch_floor_ms()
+    phase("launch_floor", card=repr(smi), floor_ms=floor_ms,
+          what="'profiler device time of a one-element x.add_(1.0)'")
     ctx32 = loop.make_map_context(lines, cache64, resol, ds.param.ori_x,
                                   ds.param.ori_y, dtype=np.float32,
                                   device=device)
-    coarse = loop.prepare_coarse(ctx32, cfg)
-    fr32 = loop.stack_frames(ds, dtype=np.float32, max_frames=2)
-    state = loop.init_state(torch.float32, device)
-    truth = synth.true_pose_px(scene)
-    cases = []
-    for f, last in ((0, None), (1, truth[1])):
-        inp = tuple(torch.as_tensor(fr32[k][f], device=device)
-                    for k in loop._FRAME_KEYS)
-        fs = loop.featurize_stage(inp, ctx32, cfg)
-        last_pose = state.last_pose if last is None else torch.tensor(
-            [last[0], last[1], 0.0], dtype=torch.float32, device=device)
-        cand = assoc.generate_candidates(
-            fs.lines, fs.lines_mask, ctx32.lines, ctx32.lines_mask,
-            loop.geo.c_round(fs.lidar_pos), last_pose, sh.max_candidates,
-            cfg.match.ignore_scan_length, cfg.match.scan_to_map_diff,
-            cfg.match.max_esti_dist)
-        frame = "relock" if last is None else "tracking"
-        for path in ("unpruned", "pruned"):
-            cases.append(kernel_case(f"{frame}_{path}", cand, fs, ctx32, cfg,
-                                     coarse, device, reps=200, card=repr(smi)))
+    cases = score_frame_cases(scene, ctx32, cfg, device, repr(smi), floor_ms)
     phase("library", library_ms="null",
           reason="'no single PyTorch call computes CalcScore'")
 
@@ -586,20 +670,7 @@ def main():
           f32_launches=len(calls32), f64_launches=len(calls64),
           degenerate="vertical, horizontal, outside: equal")
 
-    def typical(r):
-        sel = sorted((int(c[2].sum()), i) for i, c in enumerate(calls32)
-                     if c[1].shape[0] == r)
-        return sel[len(sel) // 2][1] if sel else None
-
-    most = max(range(len(calls32)), key=lambda i: int(calls32[i][2].sum()))
-    nfa_cases = []
-    for label, i in (("most_covered", most), ("typical_R1", typical(1)),
-                     ("typical_R5", typical(5))):
-        if i is None:
-            phase("nfa_kernel_check", name=label, note="'no such launch'")
-            continue
-        deg_map, scal = calls32[i][0], calls32[i][1]
-        nfa_cases.append(nfa_case(label, deg_map, scal, 200, repr(smi)))
+    nfa_runs = nfa_cases(calls32, repr(smi), floor_ms)
     phase("library", kernel="rect_counts", library_ms="null",
           reason="'no single PyTorch call rasterizes and counts a batch of "
                  "rectangles'")
@@ -660,6 +731,10 @@ def main():
           rmse_m=float(np.sqrt(np.mean(err ** 2))),
           nfa_launches=launches_e["rect_counts"],
           score_launches=launches_e["score_partials"])
+    # the CalcScore kernel at this path's relock frame: its largest launch
+    e2e_cases = score_frame_cases(scene, ctx_e, cfg_e, device, repr(smi),
+                                  floor_ms, prefix="e2e_",
+                                  frames=("relock",))
 
     # --- 8. report -------------------------------------------------------
     main_case = cases[1]      # relock frame as the main path scores it
@@ -668,14 +743,18 @@ def main():
         "source": "lsdtpu_torch/csrc/score.cu",
         "replaces": "lsdtpu/ops/score_pallas.py:54",
         "checked": True, "launches": launches,
-        "max_abs_err": max(c["max_abs_err"] for c in cases),
+        "max_abs_err": max(c["max_abs_err"] for c in cases + e2e_cases),
         "ms": main_case["ms"], "ms_source": main_case["ms_source"],
         "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
-        "library_ms": None,
-        "cases": cases,
+        "library_ms": None, "floor_ms": floor_ms,
+        "design": "persistent grid (SMs x resident blocks); a block "
+                  "scores one live slot at a time over the whole pixel "
+                  "cloud held in registers; warp sums, warps in order, "
+                  "no cross-block reduction",
+        "cases": cases + e2e_cases,
     }
-    top = nfa_cases[0]        # the batch with the most covered pixels
+    top = nfa_runs[0]         # the batch with the most covered pixels
     nfa_kern = {
         "name": "rect_counts", "route": "cuda",
         "source": "lsdtpu_torch/csrc/nfa.cu",
@@ -684,8 +763,11 @@ def main():
         "max_abs_err": 0.0, "ms": top["ms"], "ms_source": top["ms_source"],
         "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
         "bound_by": top["bound_by"], "library_ms": None,
-        "mean_device_ms_per_launch": nfa_dev,
-        "cases": nfa_cases,
+        "mean_device_ms_per_launch": nfa_dev, "floor_ms": floor_ms,
+        "design": "one 512-thread block per rectangle; column bounds, "
+                  "block scan of the heights, flat covered index by "
+                  "binary search",
+        "cases": nfa_runs,
     }
     print(json.dumps({"kernels": [kern, nfa_kern]}), flush=True)
     print(smi, flush=True)
