@@ -12,8 +12,8 @@ lines + distance field), then both together.  Phases, each printed on
 its own line; any failure exits non-zero before the last line:
 
   1. device: the card's name, count and power limit (no card: exit 2);
-  2. build: nvcc builds csrc/score.cu and csrc/nfa.cu, one process each,
-     started together (seconds, ptxas registers/spills);
+  2. build: nvcc builds csrc/score.cu, csrc/nfa.cu and csrc/grow.cu, one
+     process each, started together (seconds, ptxas registers/spills);
   3. scene: the synthetic scene; its distance field from the port's
      create_map_cache on the card; its map lines from the wall segments;
   4. kernel check: the launch floor (the profiler's device time of a
@@ -23,7 +23,7 @@ its own line; any failure exits non-zero before the last line:
      unpruned path, with times, the bound, the floor, the launch counts
      and 50 repeated launches bitwise equal to the first;
   5. rollout: f64 on the card vs the CPU (identical decisions), then f32
-     on the card, 5 repeats timed to value, with the kernel's launch
+     on the card, 3 repeats timed to value, with the kernel's launch
      count checked against one launch per frame (wall-segment lines, as
      before map prep was ported, so the numbers stay comparable);
   6. map prep: f64 on the card vs the CPU (the same lines within 1e-6
@@ -34,12 +34,29 @@ its own line; any failure exits non-zero before the last line:
      degenerate rectangles, and timed (with the bitwise repeat check) on
      three recorded batches;
   7. end to end: grid -> prepare_map (f32, card) -> make_map_context ->
-     run_sequence of the 279 frames, 5 repeats, tracked frames and the
+     run_sequence of the 279 frames, 3 repeats, tracked frames and the
      position error against the true trajectory; then the CalcScore
      kernel at that path's relock frame (the port's own LSD lines, its
      K cap of 4096: the main path's largest launch), pruned and
      unpruned;
-  8. a JSON line of the kernels, the nvidia-smi name/power line, and the
+  8. (inside 4 and 5) the CalcScore kernel on u16/u8/bf16 fields and on
+     a 768-px window of the field (col0 != 0), beside the f32 cases; and
+     f64 card vs CPU rollouts on a u16 field with a window that engages
+     (60 frames, scans clipped to 6 m): identical decisions;
+  9. FIFO growth, on the same scene with round pillars (their arcs send
+     regions through the radius reducer): the latency probe (SM cycles of
+     a dependent on-chip load and of an atan2, for the queue kernels'
+     chain bound); f64 FIFO map prep on the card
+     (every grow_fifo and radius_reducer_fifo launch recorded) vs the CPU,
+     the same lines within 1e-9 px and the same seed walk (else the first
+     growth call where the two part ways); every recorded launch replayed through
+     the plain versions (same region, queue and count, reg_deg within
+     1e-12), 50 repeats of the largest bitwise equal, device time, plain
+     time and bound; f32 wave and FIFO map prep timed to value with the
+     counters, a sample of the f32 launches replayed; then grid -> FIFO
+     map prep -> rollout of the 279 frames, 3 repeats, with every kernel's
+     launches counted from 0 over that run;
+ 10. a JSON line of the kernels, the nvidia-smi name/power line, and the
      last line {"ok": true, "device": {...}}.
 """
 
@@ -67,12 +84,26 @@ OPS_PER_PAIR = 16
 # the scene: seed 1 gives a 1072-candidate relock frame, data1's scale
 SCENE_SEED = 1
 FRAMES = 279  # data1's sequence length
-REPEATS = 5   # timed f32 rollouts (median reported)
+REPEATS = 3   # timed f32 rollouts (median reported)
+CODES_FRAMES = 60  # depth of the u16 + window rollout check
+PROFILE_FRAMES = 100  # depth of the profiled f32 rollout
+PILLARS = 16  # round pillars of the FIFO phases' map (sparse regions)
+FIFO_REPEATS = 3  # timed f32 map preps on the FIFO phases' map
 RTOL = 2e-6   # f32 kernel vs plain: different summation order
 ATOL = 2e-6
 
 
+_CLOCK = {"start": time.perf_counter()}
+_CLOCK["last"] = _CLOCK["start"]
+
+
 def phase(tag, **kw):
+    """One phase line: its values, the seconds since the previous line
+    (phase_s) and since the start (t_s)."""
+    now = time.perf_counter()
+    kw.update(phase_s=round(now - _CLOCK["last"], 2),
+              t_s=round(now - _CLOCK["start"], 2))
+    _CLOCK["last"] = now
     print(f"[{tag}] " + " ".join(f"{k}={v}" for k, v in kw.items()),
           flush=True)
 
@@ -162,9 +193,23 @@ def repeats_bitwise(name, fn, first, reps=50):
     return acts
 
 
+def profiled_ms(name, fn, first, kernel, tries=3):
+    """Device ms per launch of ``kernel`` over 50 launches of fn, each
+    bitwise equal to ``first`` (repeats_bitwise); the profile is taken
+    again when its activities miss the kernel (the profiler's device
+    events can come back empty).  None when every try missed."""
+    for _ in range(tries):
+        ms = kernel_device_ms(repeats_bitwise(name, fn, first), kernel)
+        if ms is not None:
+            return ms
+    return None
+
+
 def kernel_case(name, cand, fs, ctx, cfg, coarse, device, reps, card,
-                floor_ms):
-    """Kernel vs plain on one frame's inputs; returns the measurements."""
+                floor_ms, block=None):
+    """Kernel vs plain on one frame's inputs; returns the measurements.
+    block: (field view, row0, col0) to score instead of the whole field
+    (a window), else ctx.cache."""
     import torch
     from lsdtpu_torch.match import associate as assoc
     from lsdtpu_torch.ops import score as sc
@@ -183,8 +228,11 @@ def kernel_case(name, cand, fs, ctx, cfg, coarse, device, reps, card,
             m.prune_block, m.prune_group)
     else:
         idx, n = None, cand.count.clamp(0, K).to(torch.int32)
-    args = (feats, idx, n, px, py, n_pix, ctx.cache, 0, ctx.rows, ctx.cols,
-            z, pen, z)
+    field, row0, col0 = (ctx.cache, 0, 0) if block is None else block
+    # (col0 only for a window: scripts/torch_kernel_ab.py runs these cases
+    # against checkouts whose score_partials predates it)
+    args = (feats, idx, n, px, py, n_pix, field, row0, ctx.rows, ctx.cols,
+            z, pen, z) + ((col0,) if col0 else ())
     before = sc.score_partials.launches
     got = sc.score_partials(*args)
     torch.cuda.synchronize()
@@ -216,25 +264,30 @@ def kernel_case(name, cand, fs, ctx, cfg, coarse, device, reps, card,
     tx = (px[None, :P] - sx) * ca - (py[None, :P] - sy) * sa + mx
     ty = (px[None, :P] - sx) * sa + (py[None, :P] - sy) * ca + my
     fx, fy = assoc.geo.c_round(tx), assoc.geo.c_round(ty)
-    ins = (fx >= 0) & (fx < ctx.cols) & (fy >= 0) & (fy < ctx.rows)
+    bh, bw = field.shape
+    ins = (fx >= max(col0, 0)) & (fx < min(ctx.cols, col0 + bw)) & \
+        (fy >= max(row0, 0)) & (fy < min(ctx.rows, row0 + bh))
     cells = int(torch.unique((fy[ins] * ctx.cols + fx[ins]).long()).numel())
     esize = feats.element_size()
-    nbytes = (esize * (6 * n_live + 2 * P + cells)       # inputs read once
+    nbytes = (esize * (6 * n_live + 2 * P)                # inputs read once
+              + field.element_size() * cells
               + (4 * n_live if idx is not None else 0)    # survivor list
               + K * (2 * esize + 2 * 4))                  # the 4 outputs
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = OPS_PER_PAIR * pairs / PEAK_OPS[str(dt).split(".")[1]] * 1e3
-    out = dict(name=name, live_candidates=n_live, live_pixels=P,
-               pairs=pairs, distinct_cells=cells, max_abs_err=err,
+    out = dict(name=name, field=str(field.dtype).split(".")[1],
+               window=f"{bh}x{bw}@({row0},{col0})", live_candidates=n_live,
+               live_pixels=P, pairs=pairs, distinct_cells=cells,
+               max_abs_err=err,
                bound_ms=max(t_bytes, t_ops),
                bound_by="bytes" if t_bytes >= t_ops else "operations",
                check_launches=sc.score_partials.launches - before)
     # device time per launch from the profiler; CUDA events over
     # back-to-back launches also include the host's launch gaps
-    acts = repeats_bitwise(name, lambda: sc.score_partials(*args), got)
+    dev_ms = profiled_ms(name, lambda: sc.score_partials(*args), got,
+                         "score_partials_kernel")
     out["repeats_bitwise"] = 50
     out["kernel_ms"] = time_cuda(lambda: sc.score_partials(*args), reps)
-    dev_ms = kernel_device_ms(acts)
     out["ms"] = out["kernel_ms"] if dev_ms is None else dev_ms
     out["ms_source"] = "cuda events" if dev_ms is None else "profiler"
     out["plain_ms"] = time_cuda(
@@ -244,26 +297,31 @@ def kernel_case(name, cand, fs, ctx, cfg, coarse, device, reps, card,
     return out
 
 
-def make_scene():
-    """The synthetic scene at data1's extent (seed SCENE_SEED)."""
+def make_scene(pillars=0):
+    """The synthetic scene at data1's extent (seed SCENE_SEED), with
+    ``pillars`` round pillars (the FIFO phases' map: their arcs give the
+    sparse regions that send FIFO growth through the radius reducer)."""
     from lsdtpu_torch.io import synth
     return synth.synth_dataset(SCENE_SEED, F=FRAMES, H=979, W=1440,
                                resol=0.025, rmax=13.0, n_walls=46,
-                               clear_m=2.5, wall_scale=2.5)
+                               clear_m=2.5, wall_scale=2.5, pillars=pillars)
 
 
 def score_frame_cases(scene, ctx, cfg, device, card, floor_ms, prefix="",
-                      frames=("relock", "tracking")):
-    """kernel_case on the unpruned and the pruned path at the relock
-    frame (frame 0, no prior pose: the full sweep) and a tracking frame
-    (frame 1 from the true pose), as the main path builds them."""
+                      frames=("relock", "tracking"),
+                      paths=("unpruned", "pruned"), window=0):
+    """kernel_case on the given paths at the relock frame (frame 0, no
+    prior pose: the full sweep) and a tracking frame (frame 1 from the
+    true pose), as the main path builds them.  window > 0 scores a
+    (window, window) view of the field around the pose (the windowed
+    scorer's block, col0 != 0) instead of the whole field."""
     import torch
     from lsdtpu_torch.match import associate as assoc
     from lsdtpu_torch.runtime import loop
     from lsdtpu_torch.io import synth
     ds = scene.dataset
     sh = cfg.shapes
-    dt = ctx.cache.dtype
+    dt = ctx.lines.dtype
     coarse = loop.prepare_coarse(ctx, cfg)
     fr = loop.stack_frames(ds, dtype=np.dtype(str(dt).split(".")[1]).type,
                            max_frames=2)
@@ -283,10 +341,18 @@ def score_frame_cases(scene, ctx, cfg, device, card, floor_ms, prefix="",
             loop.geo.c_round(fs.lidar_pos), last_pose, sh.max_candidates,
             cfg.match.ignore_scan_length, cfg.match.scan_to_map_diff,
             cfg.match.max_esti_dist)
-        for path in ("unpruned", "pruned"):
+        block = None
+        if window:
+            _fits, r0, c0 = assoc.window_origin(
+                window, torch.as_tensor(truth[max(f, 1)], dtype=dt,
+                                        device=device),
+                torch.zeros((), dtype=dt, device=device),
+                cfg.match.max_esti_dist, ctx.rows, ctx.cols)
+            block = (ctx.cache[r0:r0 + window, c0:c0 + window], r0, c0)
+        for path in paths:
             c = kernel_case(f"{prefix}{frame}_{path}", cand, fs, ctx, cfg,
                             coarse, device, reps=200, card=card,
-                            floor_ms=floor_ms)
+                            floor_ms=floor_ms, block=block)
             c["k_cap"] = sh.max_candidates
             cases.append(c)
     return cases
@@ -364,12 +430,12 @@ def nfa_case(name, deg_map, scalars, reps, card, floor_ms):
                distinct_pixels=distinct, max_abs_err=0.0,
                bound_ms=max(t_bytes, t_ops),
                bound_by="bytes" if t_bytes >= t_ops else "operations")
-    acts = repeats_bitwise(f"nfa {name}",
-                           lambda: onfa.rect_counts(deg_map, scalars), got)
+    dev_ms = profiled_ms(f"nfa {name}",
+                         lambda: onfa.rect_counts(deg_map, scalars), got,
+                         "rect_counts_kernel")
     out["repeats_bitwise"] = 50
     out["kernel_ms"] = time_cuda(lambda: onfa.rect_counts(deg_map, scalars),
                                  reps)
-    dev_ms = kernel_device_ms(acts, "rect_counts_kernel")
     out["ms"] = out["kernel_ms"] if dev_ms is None else dev_ms
     out["ms_source"] = "cuda events" if dev_ms is None else "profiler"
     out["plain_ms"] = time_cuda(
@@ -421,6 +487,248 @@ def degenerate_rects(deg_map):
         sc = np.stack([mnfa.pack_rect_scalars(r) for r in recs])
     return torch.from_numpy(sc).to(deg_map.device)
 
+# --- FIFO growth (slice 4) ---------------------------------------------
+
+# operations the bound counts: per popped pixel 9 neighbour tests (bounds,
+# flags, angle difference, fold, compare: ~6 each); per accepted pixel two
+# adds and an atan2 (~20 float operations).  Per reducer point a distance
+# (2 sub, 2 mul, add, sqrt) and a compare.
+OPS_PER_POP = 54
+OPS_PER_ACCEPT = 22
+OPS_PER_REDUCER_POINT = 7
+
+
+def record_fifo(run):
+    """Run ``run()`` with every grow_fifo and radius_reducer_fifo call of
+    map prep recorded (inputs and outputs, cloned); returns (result,
+    grows, reduces)."""
+    import types
+    import torch
+    from lsdtpu_torch.mapprep import lsd as mlsd
+    from lsdtpu_torch.mapprep import rect as mrect
+    og = mlsd.ogrow
+    grows, reduces = [], []
+
+    def grow(sy, sx, thre, ban, deg, sn, cs, queue=None):
+        out = og.grow_fifo(sy, sx, thre, ban, deg, sn, cs, queue)
+        n = int(out.counts[0])
+        grows.append(dict(
+            sy=sy, sx=sx, ban=ban.clone(), deg=deg, sn=sn, cs=cs,
+            thre=thre.clone() if torch.is_tensor(thre) else thre,
+            cur=out.cur.clone(), reg_deg=out.reg_deg.clone(),
+            qy=out.qy[:n].clone(), qx=out.qx[:n].clone(),
+            counts=out.counts.clone()))
+        return out
+
+    def reduce(sx, sy, rad, qy, qx, n, cur, fit):
+        m = int(n[0])
+        rec = dict(sx=sx, sy=sy, rad=rad, inputs=tuple(
+            t.clone() for t in (qy[:m], qx[:m], n, cur, fit)))
+        og.radius_reducer_fifo(sx, sy, rad, qy, qx, n, cur, fit)
+        rec["outputs"] = tuple(t.clone() for t in (qy[:m], qx[:m], n, cur,
+                                                   fit))
+        reduces.append(rec)
+
+    ns = types.SimpleNamespace(fifo_queue=og.fifo_queue, grow_fifo=grow,
+                               radius_reducer_fifo=reduce)
+    mlsd.ogrow, mrect.ogrow = ns, ns
+    try:
+        return run(), grows, reduces
+    finally:
+        mlsd.ogrow, mrect.ogrow = og, og
+
+
+def replay_grow(c, cpu_maps):
+    """One recorded grow_fifo launch through the plain version on the
+    CPU; returns (same region, queue and count, reg_deg difference)."""
+    import torch
+    from lsdtpu_torch.ops import grow as og
+    deg, sn, cs = cpu_maps
+    H, W = deg.shape
+    thre = c["thre"].cpu() if torch.is_tensor(c["thre"]) else c["thre"]
+    want = og.grow_fifo_reference(c["sy"], c["sx"], thre, c["ban"].cpu(), deg,
+                                  sn, cs, og.fifo_queue(H, W, "cpu"))
+    n = int(want.counts[0])
+    same = (c["counts"].cpu().tolist() == want.counts.tolist()
+            and torch.equal(c["cur"].cpu(), want.cur)
+            and torch.equal(c["qy"].cpu(), want.qy[:n])
+            and torch.equal(c["qx"].cpu(), want.qx[:n]))
+    return same, abs(float(c["reg_deg"]) - float(want.reg_deg))
+
+
+def replay_reduce(c):
+    """One recorded radius_reducer_fifo launch through the plain version
+    on the CPU; True when every output is equal."""
+    import torch
+    from lsdtpu_torch.ops import grow as og
+    cpu = tuple(t.cpu().clone() for t in c["inputs"])
+    og.radius_reducer_fifo_reference(c["sx"], c["sy"], c["rad"], *cpu)
+    return all(torch.equal(a.cpu(), b) for a, b in zip(c["outputs"], cpu))
+
+
+def grow_bound(c, lat, sm_clock_hz):
+    """The bound of one grow_fifo launch from this run's data.  The
+    queue is serial, so its bound is the dependent chain: each popped
+    pixel one dependent on-chip load (the faster of a shared-memory load
+    and an L1 hit) and each accepted pixel, the seed's start angle
+    included, one atan2 of the working type, at the latencies ``lat``
+    measured on this card (ops/grow.py:latency_probe) and the maximum SM
+    clock.  Beside it, bytes (the cells the walk touches - the region and
+    its 8-neighbour ring - read once as angle, sin, cos and ban; the
+    region mask, queue, angle and counts written once) and operations;
+    the bound is the largest of the three."""
+    import torch.nn.functional as F
+    cur = c["cur"]
+    dt = str(c["deg"].dtype).split(".")[1]
+    esize = c["deg"].element_size()
+    n, pops, _passes = c["counts"].tolist()
+    ring = F.max_pool2d(cur.float()[None, None], 3, 1, 1)[0, 0] > 0
+    touched = int(ring.sum())
+    nbytes = touched * (3 * esize + 1) + cur.numel() + 8 * n + 12 + esize
+    ops = OPS_PER_POP * pops + OPS_PER_ACCEPT * (n - 1)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS[dt] * 1e3
+    load = min(lat["smem_load"], lat["l1_load"])
+    t_chain = (pops * load + n * lat[f"atan2_{dt}"]) / sm_clock_hz * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops, t_chain),
+                bound_by="bytes" if t_bytes >= max(t_ops, t_chain)
+                else "operations", bound_kind="dependent chain",
+                chain_bound_ms=t_chain, bytes_bound_ms=t_bytes,
+                ops_bound_ms=t_ops, touched_cells=touched, pops=pops,
+                accepted=n - 1)
+
+
+def reduce_bound(c, lat, sm_clock_hz, dt):
+    """The bound of one radius_reducer_fifo pass: the dependent chain,
+    one on-chip load per examined point (the slot a point is read from
+    depends on the decision before it), as in grow_bound; beside it the
+    n live queue entries read and written once, a mask cell written per
+    removed point and the count, and the operations per point."""
+    n = int(c["inputs"][2][0])
+    removed = n - int(c["outputs"][2][0])
+    nbytes = 16 * n + 2 * removed + 8
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = OPS_PER_REDUCER_POINT * n / PEAK_OPS[dt] * 1e3
+    t_chain = n * min(lat["smem_load"], lat["l1_load"]) / sm_clock_hz * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops, t_chain),
+                bound_by="bytes" if t_bytes >= max(t_ops, t_chain)
+                else "operations", bound_kind="dependent chain",
+                chain_bound_ms=t_chain, bytes_bound_ms=t_bytes,
+                ops_bound_ms=t_ops, points=n, removed=removed)
+
+
+def first_differing_growth(a, b):
+    """The first growth call at which two recorded FIFO map preps part
+    ways (seed, threshold, ban mask or outcome), as (index, the card's
+    call, the CPU's call) summaries; None when every call agrees."""
+    import torch
+
+    def summary(c):
+        return dict(seed=(c["sy"], c["sx"]), thre=float(c["thre"]),
+                    counts=c["counts"].tolist(),
+                    reg_deg=float(c["reg_deg"]))
+
+    for i, (x, y) in enumerate(zip(a, b)):
+        if (summary(x) != summary(y)
+                or not torch.equal(x["ban"].cpu(), y["ban"].cpu())
+                or not torch.equal(x["cur"].cpu(), y["cur"].cpu())):
+            return i, summary(x), summary(y)
+    if len(a) != len(b):
+        i = min(len(a), len(b))
+        return i, (summary(a[i]) if i < len(a) else None), \
+            (summary(b[i]) if i < len(b) else None)
+    return None
+
+
+def plain_ms(fn, reps=3):
+    """Mean host ms of a plain version's call on CPU tensors."""
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def sm_clock_hz():
+    """The card's maximum SM clock from nvidia-smi, in Hz."""
+    res = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    if res.returncode != 0:
+        fail(f"nvidia-smi failed: {res.stderr.strip()}")
+    return float(res.stdout.strip().splitlines()[0]) * 1e6
+
+
+def fifo_kernel_cases(grows, reduces, card, floor_ms, lat, clock):
+    """Device time of the largest recorded grow_fifo region (50 launches,
+    bitwise equal to the first) and of the largest reducer pass, with
+    their bounds and their plain versions' times."""
+    import torch
+    from lsdtpu_torch.ops import grow as og
+    big = max(grows, key=lambda c: int(c["counts"][1]))
+    H, W = big["deg"].shape
+    queue = og.fifo_queue(H, W, big["deg"].device)
+    n = int(big["counts"][0])
+
+    def launch():
+        g = og.grow_fifo(big["sy"], big["sx"], big["thre"], big["ban"],
+                         big["deg"], big["sn"], big["cs"], queue)
+        return g.cur, g.reg_deg, g.qy[:n].clone(), g.qx[:n].clone(), g.counts
+
+    first = tuple(t.clone() for t in launch())
+    if not (torch.equal(first[0], big["cur"])
+            and torch.equal(first[4], big["counts"])):
+        fail("grow_fifo: a relaunch on the largest region differs from the "
+             "recorded launch")
+    grow_ms, grow_src = profiled_ms("grow_fifo", launch, first,
+                                    "grow_fifo_kernel"), "profiler"
+    if grow_ms is None:
+        grow_ms, grow_src = time_cuda(launch, 50), "cuda events"
+    cpu_maps = tuple(t.cpu() for t in (big["deg"], big["sn"], big["cs"]))
+    thre = big["thre"].cpu() if torch.is_tensor(big["thre"]) else big["thre"]
+    g_out = dict(
+        name="grow_largest", seed=(big["sy"], big["sx"]),
+        dtype=str(big["deg"].dtype).split(".")[1], region=n,
+        **grow_bound(big, lat, clock), repeats_bitwise=50,
+        ms=grow_ms, ms_source=grow_src,
+        plain_ms=plain_ms(lambda: og.grow_fifo_reference(
+            big["sy"], big["sx"], thre, big["ban"].cpu(), *cpu_maps,
+            og.fifo_queue(H, W, "cpu"))), floor_ms=floor_ms)
+    phase("grow_kernel_check", **g_out, bound_us=g_out["bound_ms"] * 1e3,
+          chain_bound_us=g_out["chain_bound_ms"] * 1e3, card=card)
+    out = [g_out]
+    if reduces:
+        rb = max(reduces, key=lambda c: int(c["inputs"][2][0]))
+
+        def rlaunch():
+            t = tuple(x.clone() for x in rb["inputs"])
+            og.radius_reducer_fifo(rb["sx"], rb["sy"], rb["rad"], *t)
+            return t
+
+        r_first = rlaunch()
+        if not all(torch.equal(a, b) for a, b in zip(r_first, rb["outputs"])):
+            fail("radius_reducer_fifo: a relaunch differs from the recorded "
+                 "launch")
+        r_ms, r_src = profiled_ms("radius_reducer_fifo", rlaunch, r_first,
+                                  "radius_reducer_fifo_kernel"), "profiler"
+        if r_ms is None:
+            r_ms, r_src = time_cuda(rlaunch, 50), "cuda events"
+        dt_name = "float32" if isinstance(rb["rad"], np.float32) \
+            else "float64"
+        r_out = dict(
+            name="reducer_largest", **reduce_bound(rb, lat, clock, dt_name),
+            repeats_bitwise=50,
+            ms=r_ms, ms_source=r_src,
+            plain_ms=plain_ms(lambda: og.radius_reducer_fifo_reference(
+                rb["sx"], rb["sy"], rb["rad"],
+                *(t.cpu().clone() for t in rb["inputs"]))),
+            floor_ms=floor_ms)
+        phase("grow_kernel_check", **r_out, bound_us=r_out["bound_ms"] * 1e3,
+              chain_bound_us=r_out["chain_bound_ms"] * 1e3, card=card)
+        out.append(r_out)
+    return out
+
+
 
 def main():
     import torch
@@ -447,8 +755,8 @@ def main():
 
     # --- 2. build ------------------------------------------------------
     t0 = time.perf_counter()
-    build.load_libraries(["score", "nfa"])
-    for name in ("score", "nfa"):
+    build.load_libraries(["score", "nfa", "grow"])
+    for name in ("score", "nfa", "grow"):
         log = build.BUILD_LOG.get(name, {})
         usage = re.findall(r"(Used \d+ registers[^\n]*|\d+ bytes spill "
                            r"stores[^\n]*)", log.get("ptxas", ""))
@@ -485,6 +793,31 @@ def main():
                                   ds.param.ori_y, dtype=np.float32,
                                   device=device)
     cases = score_frame_cases(scene, ctx32, cfg, device, repr(smi), floor_ms)
+    # the compressed fields (the main path's relock and tracking launches)
+    # and a 768-px window of the field (col0 != 0), beside the f32 cases
+    code_cases = []
+    for mode in ("u16", "u8", "bf16"):
+        ctx_m = loop.make_map_context(lines, cache64, resol, ds.param.ori_x,
+                                      ds.param.ori_y, dtype=np.float32,
+                                      cache_dtype=mode, device=device)
+        code_cases += score_frame_cases(scene, ctx_m, cfg, device, repr(smi),
+                                        floor_ms, prefix=f"{mode}_",
+                                        frames=("relock",), paths=("pruned",))
+        code_cases += score_frame_cases(scene, ctx_m, cfg, device, repr(smi),
+                                        floor_ms, prefix=f"{mode}_",
+                                        frames=("tracking",),
+                                        paths=("unpruned",))
+    for ctx_w, tag in ((ctx32, "f32"), (ctx_m, "bf16")):
+        code_cases += score_frame_cases(scene, ctx_w, cfg, device, repr(smi),
+                                        floor_ms, prefix=f"window768_{tag}_",
+                                        frames=("tracking",),
+                                        paths=("unpruned",), window=768)
+    f32_ms = {c["name"]: c["ms"] for c in cases}
+    phase("kernel_check_fields", card=repr(smi), **{
+        c["name"]: round(c["ms"] * 1e3, 3) for c in code_cases},
+        f32_relock_pruned_us=round(f32_ms["relock_pruned"] * 1e3, 3),
+        f32_tracking_us=round(f32_ms["tracking_unpruned"] * 1e3, 3),
+        units="'us device per launch'")
     phase("library", library_ms="null",
           reason="'no single PyTorch call computes CalcScore'")
 
@@ -511,6 +844,55 @@ def main():
     phase("rollout_f64_parity", n_candidates="identical",
           tracked_pattern="identical",
           max_pose_diff_px=float(np.abs(a["pose"][ok] - b["pose"][ok]).max()))
+
+    # u16 field and a 768-px window that engages: f64 card vs CPU on the
+    # first 60 frames with the scans clipped to 6 m (a short-range lidar:
+    # the coverage bound then fits the window on tracking frames)
+    from lsdtpu_torch.match import associate as assoc
+    t_codes = time.perf_counter()
+    frc = {k: v[:CODES_FRAMES] for k, v in fr64.items()}
+    far = frc["ranges"] > 6.0
+    frc["valid"] = frc["valid"] & ~far
+    frc["ranges"] = np.where(far, 0.0, frc["ranges"])
+    cfg_c = dataclasses.replace(cfg, match=dataclasses.replace(
+        cfg.match, cache_dtype="u16", score_window=768))
+    window_origin = assoc.window_origin
+    runs = {}
+    try:
+        for dev in (device, torch.device("cpu")):
+            engaged = []
+
+            def origin(*a, **k):
+                r = window_origin(*a, **k)
+                engaged.append(r[0])
+                return r
+
+            assoc.window_origin = origin
+            c16 = loop.make_map_context(lines, cache64.cpu(), resol,
+                                        ds.param.ori_x, ds.param.ori_y,
+                                        dtype=np.float64, cache_dtype="u16",
+                                        device=dev)
+            out = loop.run_sequence(frc, c16, cfg_c, device=dev)
+            runs[dev.type] = ({k: v.cpu().numpy() for k, v in out.items()},
+                              sum(engaged))
+    finally:
+        assoc.window_origin = window_origin
+    (a, eng_gpu), (b, eng_cpu) = runs["cuda"], runs["cpu"]
+    if not (np.array_equal(a["n_candidates"], b["n_candidates"])
+            and np.array_equal(np.isfinite(a["score"]),
+                               np.isfinite(b["score"]))):
+        fail("u16 windowed f64 rollouts: card and CPU decisions differ")
+    if eng_gpu != eng_cpu or eng_gpu == 0:
+        fail(f"u16 windowed rollouts: the window engaged on {eng_gpu} card "
+             f"and {eng_cpu} CPU frames")
+    ok = ~np.isnan(a["pose"]).any(1) & ~np.isnan(b["pose"]).any(1)
+    phase("rollout_codes", card=repr(smi), cache_dtype="u16", window=768,
+          frames=CODES_FRAMES, clipped_m=6.0,
+          tracked=int(np.isfinite(a["score"]).sum()),
+          window_engaged_frames=eng_gpu, n_candidates="identical",
+          tracked_pattern="identical",
+          max_pose_diff_px=float(np.abs(a["pose"][ok] - b["pose"][ok]).max()),
+          seconds=round(time.perf_counter() - t_codes, 2))
 
     # f32 on the card, timed to value; the main path's run for the counts
     fr32 = loop.stack_frames(ds, dtype=np.float32)
@@ -544,16 +926,19 @@ def main():
           tracked=int(tracked.sum()), rmse_m=float(np.sqrt(np.mean(err ** 2))),
           launches=launches, launches_per_frame=launches / (F * REPEATS))
 
-    # where the time goes: one more rollout under the profiler
+    # where the time goes: the first PROFILE_FRAMES frames once more under
+    # the profiler (its event processing costs ~0.5 s a frame)
+    fr_prof = {k: v[:PROFILE_FRAMES] for k, v in fr32_dev.items()}
     wall, acts = device_profile(
-        lambda: loop.run_sequence(fr32_dev, ctx32, cfg, device=device))
+        lambda: loop.run_sequence(fr_prof, ctx32, cfg, device=device))
     busy = sum(v[1] for v in acts.values()) / 1e3
     top = sorted(acts.items(), key=lambda kv: -kv[1][1])[:5]
     score_ms = sum(v[1] for k, v in acts.items()
                    if "score_partials_kernel" in k) / 1e3
-    phase("profile_f32", card=repr(smi), wall_ms=wall, device_busy_ms=busy,
-          device_idle_share=1.0 - busy / wall,
-          device_ops_per_frame=sum(v[0] for v in acts.values()) / F,
+    phase("profile_f32", card=repr(smi), frames=PROFILE_FRAMES, wall_ms=wall,
+          device_busy_ms=busy, device_idle_share=1.0 - busy / wall,
+          device_ops_per_frame=sum(v[0] for v in acts.values())
+          / PROFILE_FRAMES,
           score_kernel_ms=score_ms,
           top=repr([(k[:60], v[0], round(v[1] / 1e3, 3)) for k, v in top]))
 
@@ -736,14 +1121,232 @@ def main():
                                   floor_ms, prefix="e2e_",
                                   frames=("relock",))
 
-    # --- 8. report -------------------------------------------------------
+    # --- 9. FIFO growth (slice 4) -----------------------------------------
+    # the same scene with round pillars: their arcs grow sparse regions,
+    # which the refiner sends through the radius reducer
+    from lsdtpu_torch.ops import grow as og
+    t_fifo = time.perf_counter()
+    clock = sm_clock_hz()
+    lat = og.latency_probe(device)
+    phase("latency_probe", card=repr(smi), sm_clock_mhz=clock / 1e6,
+          units="'SM cycles per dependent step'",
+          **{k: round(v, 2) for k, v in lat.items()})
+    scene_p = make_scene(PILLARS)
+    ds_p = scene_p.dataset
+    grid_p = ds_p.map_value
+
+    # f64 on the card (every launch recorded) vs the CPU
+    prep = {}
+    for dev in (device, cpu):
+        st = MapPrepStats()
+        og.grow_fifo.launches = og.radius_reducer_fifo.launches = 0
+        t0 = time.perf_counter()
+        art, grows, reduces = record_fifo(lambda: prepare_map(
+            grid_p, resol, growth="fifo", dtype=torch.float64, device=dev,
+            stats=st))
+        got = art.lines_info.cpu().numpy()
+        prep[dev.type] = (st, got, grows, reduces,
+                          (og.grow_fifo.launches,
+                           og.radius_reducer_fifo.launches))
+        phase("mapprep_fifo_f64", device=dev.type, card=repr(smi),
+              seconds=round(time.perf_counter() - t0, 2), lines=len(got),
+              seeds=st.seeds, growth_calls=st.fifo_calls, pops=st.pops,
+              passes=st.passes, reducer_passes=st.reducer_passes,
+              nfa_calls=st.nfa_calls, syncs=st.syncs,
+              kernel_launches=prep[dev.type][4])
+    (st_g, l_g, grows64, reduces64, (gl, rl)), (st_c, l_c, grows_c, _r,
+                                                  _l) = prep["cuda"], prep["cpu"]
+    if (gl, rl) != (st_g.fifo_calls, st_g.reducer_passes) or gl == 0:
+        fail(f"f64 FIFO map prep: {gl} grow_fifo and {rl} reducer launches "
+             f"for {st_g.fifo_calls} growth calls and {st_g.reducer_passes} "
+             "reducer passes")
+
+    # every recorded f64 launch through the plain version
+    cpu_maps = tuple(t.cpu() for t in (grows64[0]["deg"], grows64[0]["sn"],
+                                       grows64[0]["cs"]))
+    t0 = time.perf_counter()
+    differ, max_rd = [], 0.0
+    for i, c in enumerate(grows64):
+        same, rd = replay_grow(c, cpu_maps)
+        max_rd = max(max_rd, rd) if same else max_rd
+        if not same or rd > 1e-12:
+            differ.append(i)
+            if len(differ) == 1:
+                phase("grow_kernel_check", first_differing_call=i,
+                      seed=(c["sy"], c["sx"]), reg_deg_diff=rd,
+                      kernel_counts=c["counts"].tolist())
+    r_differ = [i for i, c in enumerate(reduces64) if not replay_reduce(c)]
+    phase("grow_kernel_check", dtype="float64", grow_launches=len(grows64),
+          grow_differing=len(differ), max_reg_deg_diff=max_rd,
+          reducer_launches=len(reduces64), reducer_differing=len(r_differ),
+          replay_s=round(time.perf_counter() - t0, 2))
+    if differ or r_differ:
+        fail(f"f64 FIFO kernels: {len(differ)} grow_fifo and "
+             f"{len(r_differ)} radius_reducer_fifo launches differ from "
+             "their plain versions")
+    if len(reduces64) == 0:
+        fail("f64 FIFO map prep never ran the radius reducer")
+    end_diff = float(np.abs(l_g[:, 4:8] - l_c[:, 4:8]).max()) \
+        if len(l_g) == len(l_c) and len(l_c) else np.inf
+    walks = [(st.seeds, st.fifo_calls, st.pops, st.passes, st.reducer_passes,
+              st.nfa_calls) for st in (st_g, st_c)]
+    if len(l_g) != len(l_c) or not end_diff <= 1e-9 or walks[0] != walks[1]:
+        part = first_differing_growth(grows64, grows_c)
+        phase("mapprep_fifo_f64_divergence", walk_card=walks[0],
+              walk_cpu=walks[1], first_differing_growth_call=(
+                  "none" if part is None else part[0]),
+              card_call=None if part is None else part[1],
+              cpu_call=None if part is None else part[2])
+        fail(f"f64 FIFO map prep: {len(l_g)} lines on the card, {len(l_c)} "
+             f"on the CPU, endpoints within {end_diff} px; seed walk "
+             f"(seeds, growth calls, pops, passes, reducer passes, NFA "
+             f"calls) {walks[0]} on the card, {walks[1]} on the CPU")
+    del grows_c
+    phase("mapprep_fifo_f64_parity", lines=len(l_g),
+          max_endpoint_diff_px=end_diff, seeds=st_g.seeds,
+          growth_calls=st_g.fifo_calls, pops=st_g.pops,
+          reducer_passes=st_g.reducer_passes)
+    fifo_runs = fifo_kernel_cases(grows64, reduces64, repr(smi), floor_ms,
+                                  lat, clock)
+    del grows64, reduces64
+
+    # f32 on the card: wave and FIFO on this map, time to value (median
+    # of FIFO_REPEATS), and a sample of the FIFO launches replayed
+    def prep_p(stats, growth):
+        art = prepare_map(grid_p, resol, growth=growth, dtype=torch.float32,
+                          device=device, stats=stats)
+        return art.lines_info.cpu().numpy()
+
+    res = {}
+    for growth in ("wave", "fifo"):
+        if growth == "fifo":
+            _l, grows32, reduces32 = record_fifo(
+                lambda: prep_p(MapPrepStats(), "fifo"))
+        else:
+            prep_p(MapPrepStats(), growth)            # warm-up
+        times, sts = [], []
+        og.grow_fifo.launches = og.radius_reducer_fifo.launches = 0
+        onfa.rect_counts.launches = 0
+        for _ in range(FIFO_REPEATS):
+            sts.append(MapPrepStats())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lines_g = prep_p(sts[-1], growth)
+            times.append((time.perf_counter() - t0) * 1e3)
+        res[growth] = (lines_g, sts[-1], times,
+                       (og.grow_fifo.launches,
+                        og.radius_reducer_fifo.launches,
+                        onfa.rect_counts.launches))
+    (lw, stw, tw, _lw), (lf, stf, tf, (gl, rl, nl)) = res["wave"], res["fifo"]
+    want = tuple(sum(getattr(x, k) for x in sts)
+                 for k in ("fifo_calls", "reducer_passes", "nfa_calls"))
+    if (gl, rl, nl) != want or gl == 0:
+        fail(f"f32 FIFO map prep: launches {(gl, rl, nl)} for the counted "
+             f"calls {want}")
+    wall, acts = device_profile(lambda: prep_p(MapPrepStats(), "fifo"))
+    busy = sum(v[1] for v in acts.values()) / 1e3
+    m25, m2 = match_lines(lf, l_g, 25.0), match_lines(lf, l_g, 2.0)
+    phase("mapprep_fifo_f32", device=repr(kind), power=repr(smi),
+          median_ms=float(np.median(tf)), min_ms=min(tf), max_ms=max(tf),
+          wave_median_ms=float(np.median(tw)), lines=len(lf),
+          wave_lines=len(lw), lines_f64=len(l_g), matched_25px=m25,
+          matched_2px=m2, seeds=stf.seeds, growth_calls=stf.fifo_calls,
+          pops=stf.pops, passes=stf.passes,
+          reducer_passes=stf.reducer_passes, syncs=stf.syncs,
+          wave_syncs=stw.syncs, nfa_launches=stf.nfa_calls,
+          wave_nfa_launches=stw.nfa_calls, profiled_wall_ms=wall,
+          device_busy_ms=busy, device_idle_share=1.0 - busy / wall,
+          grow_kernel_mean_device_ms=kernel_device_ms(acts,
+                                                       "grow_fifo_kernel"),
+          grow_kernel_device_ms=sum(v[1] for k, v in acts.items()
+                                    if "grow_fifo_kernel" in k) / 1e3,
+          top=repr([(k[:50], v[0], round(v[1] / 1e3, 3)) for k, v in
+                    sorted(acts.items(), key=lambda kv: -kv[1][1])[:5]]))
+    if not (0.7 * len(l_g) <= len(lf) <= 1.6 * len(l_g)
+            and m25 >= int(0.9 * len(l_g)) and m2 >= int(0.7 * len(l_g))):
+        fail("f32 FIFO map prep lines are not structurally the f64 lines")
+    cpu_maps = tuple(t.cpu() for t in (grows32[0]["deg"], grows32[0]["sn"],
+                                       grows32[0]["cs"]))
+    big32 = sorted(range(len(grows32)), key=lambda i: -int(grows32[i]
+                                                          ["counts"][1]))
+    sample = sorted(set(range(0, len(grows32), 25)) | set(big32[:20]))
+    d32 = [i for i in sample if not replay_grow(grows32[i], cpu_maps)[0]]
+    rd32 = [i for i, c in enumerate(reduces32) if not replay_reduce(c)]
+    phase("grow_kernel_check", dtype="float32", sampled=len(sample),
+          of=len(grows32), grow_differing=len(d32),
+          first_differing=(None if not d32 else
+                           (d32[0], grows32[d32[0]]["sy"],
+                            grows32[d32[0]]["sx"])),
+          reducer_launches=len(reduces32), reducer_differing=len(rd32))
+    del grows32, reduces32
+
+    # the whole FIFO path: grid -> FIFO map prep -> rollout (f32), every
+    # kernel's count from 0 just before and read just after
+    fr_p = {k: torch.as_tensor(v, device=device)
+            for k, v in loop.stack_frames(ds_p, dtype=np.float32).items()}
+    sc.score_partials.launches = onfa.rect_counts.launches = 0
+    og.grow_fifo.launches = og.radius_reducer_fifo.launches = 0
+    st = MapPrepStats()
+    t0 = time.perf_counter()
+    art = prepare_map(grid_p, resol, growth="fifo", dtype=torch.float32,
+                      device=device, stats=st)
+    torch.cuda.synchronize()
+    prep_s = time.perf_counter() - t0
+    ctx_f = loop.make_map_context(art.lines_info, art.map_cache, resol,
+                                  ds_p.param.ori_x, ds_p.param.ori_y,
+                                  dtype=np.float32, device=device)
+    cfg_f = cfg
+    rollouts = 0
+    while True:   # warm-up; raise the candidate cap until nothing overflows
+        out = loop.run_sequence(fr_p, ctx_f, cfg_f, device=device)
+        rollouts += 1
+        K = cfg_f.shapes.max_candidates
+        if not out["candidate_overflow"].cpu().numpy().any() or K >= 16384:
+            break
+        cfg_f = dataclasses.replace(cfg_f, shapes=dataclasses.replace(
+            cfg_f.shapes, max_candidates=2 * K))
+    times = []
+    for _ in range(REPEATS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = loop.run_sequence(fr_p, ctx_f, cfg_f, device=device)
+        res_f = {k: v.cpu().numpy() for k, v in out.items()}
+        times.append((time.perf_counter() - t0) * 1e3)
+        rollouts += 1
+    launches_f = {"score_partials": sc.score_partials.launches,
+                  "rect_counts": onfa.rect_counts.launches,
+                  "grow_fifo": og.grow_fifo.launches,
+                  "radius_reducer_fifo": og.radius_reducer_fifo.launches}
+    want = {"score_partials": F * rollouts, "rect_counts": st.nfa_calls,
+            "grow_fifo": st.fifo_calls,
+            "radius_reducer_fifo": st.reducer_passes}
+    if launches_f != want or min(want.values()) == 0:
+        fail(f"end to end FIFO: launches {launches_f}, expected {want}")
+    tracked = np.isfinite(res_f["score"]) & ~np.isnan(res_f["pose"]).any(1)
+    if not tracked.any():
+        fail("the end-to-end FIFO rollout tracked no frame")
+    world = res_f["pose"][:, :2] * resol + np.array([ds_p.param.ori_x,
+                                                     ds_p.param.ori_y])
+    err = np.linalg.norm(world[tracked] - scene_p.true_pos[tracked], axis=1)
+    phase("end_to_end_fifo_f32", device=repr(kind), power=repr(smi),
+          pillars=PILLARS, map_prep_s=prep_s,
+          map_lines=int(art.lines_info.shape[0]),
+          max_candidates=cfg_f.shapes.max_candidates,
+          candidate_overflow_frames=int(res_f["candidate_overflow"].sum()),
+          rollout_median_ms=float(np.median(times)), min_ms=min(times),
+          max_ms=max(times), frames=F, tracked=int(tracked.sum()),
+          rmse_m=float(np.sqrt(np.mean(err ** 2))), launches=launches_f,
+          fifo_seconds=round(time.perf_counter() - t_fifo, 2))
+
+    # --- 10. report ------------------------------------------------------
     main_case = cases[1]      # relock frame as the main path scores it
     kern = {
         "name": "score_partials", "route": "cuda",
         "source": "lsdtpu_torch/csrc/score.cu",
         "replaces": "lsdtpu/ops/score_pallas.py:54",
         "checked": True, "launches": launches,
-        "max_abs_err": max(c["max_abs_err"] for c in cases + e2e_cases),
+        "max_abs_err": max(c["max_abs_err"] for c in
+                           cases + e2e_cases + code_cases),
         "ms": main_case["ms"], "ms_source": main_case["ms_source"],
         "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
@@ -752,7 +1355,7 @@ def main():
                   "scores one live slot at a time over the whole pixel "
                   "cloud held in registers; warp sums, warps in order, "
                   "no cross-block reduction",
-        "cases": cases + e2e_cases,
+        "cases": cases + e2e_cases + code_cases,
     }
     top = nfa_runs[0]         # the batch with the most covered pixels
     nfa_kern = {
@@ -769,7 +1372,32 @@ def main():
                   "binary search",
         "cases": nfa_runs,
     }
-    print(json.dumps({"kernels": [kern, nfa_kern]}), flush=True)
+    fifo_kern = []
+    for run, name, replaces in (
+            (fifo_runs[0], "grow_fifo", "lsdtpu/mapprep/lsd.py:109"),
+            (fifo_runs[-1], "radius_reducer_fifo",
+             "lsdtpu/mapprep/rect.py:136")):
+        fifo_kern.append({
+            "name": name, "route": "cuda",
+            "source": "lsdtpu_torch/csrc/grow.cu", "replaces": replaces,
+            "replaces_note": "an XLA while_loop of the reference package; "
+                             "no Pallas kernel",
+            "checked": True, "launches": launches_f[name],
+            "max_abs_err": max_rd if name == "grow_fifo" else 0.0,
+            "ms": run["ms"], "ms_source": run["ms_source"],
+            "plain_ms": run["plain_ms"], "bound_ms": run["bound_ms"],
+            "bound_by": run["bound_by"], "bound_kind": run["bound_kind"],
+            "bytes_bound_ms": run["bytes_bound_ms"],
+            "ops_bound_ms": run["ops_bound_ms"], "latency_cycles": lat,
+            "library_ms": None,
+            "floor_ms": floor_ms,
+            "design": "one block; its threads clear the region mask, one "
+                      "thread walks the queue with each pop's 9 neighbours "
+                      "loaded before any decision" if name == "grow_fifo"
+                      else "one thread: swap-with-last removal, then the "
+                           "phantom-slot drop",
+            "cases": [run]})
+    print(json.dumps({"kernels": [kern, nfa_kern] + fifo_kern}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -23,9 +23,10 @@ class LSDConfig:
     den_thre: float = 0.7     # density threshold (lsd_denThre)
     pse_bin: int = 1024       # pseudo-sort bins (pseBin)
     # region-growth order: "fifo" (the reference's exact FIFO acceptance
-    # order) or "wave" (wave-synchronous; line sets structural).  The
-    # port's map prep (mapprep/pipeline.py) grows in waves; "fifo" is
-    # not ported yet and raises NotImplementedError there.
+    # order; the grow_fifo kernel on the card, ops/grow.py) or "wave"
+    # (wave-synchronous; line sets structural).  The port's prepare_map
+    # takes it as its ``growth`` argument (default "wave", as the
+    # reference package's prepare_map).
     growth: str = "fifo"
     # NFA rasterize+count backend name, kept for config compatibility
     # with the reference package; the port does not read it (the
@@ -58,7 +59,8 @@ class MatchConfig:
     # CPU tensor every value routes to its plain PyTorch version.
     score_kernel: str = "xla"
     # distance-field storage: "f32" (exact, at the rollout's float
-    # dtype).  "bf16", "u16" and "u8" are not ported yet and raise.
+    # dtype), "bf16", "u16" or "u8" (compressed; the CalcScore kernel
+    # dequantizes the gathered codes, match/associate.quantize_cache).
     cache_dtype: str = "f32"
     # candidate/pixel chunking of the reference's scorer loops.  The
     # port's kernel reads the live candidate and pixel counts on the
@@ -68,8 +70,9 @@ class MatchConfig:
     score_dynamic_chunks: bool = True
     score_chunk: int = 40
     score_pixel_chunk: int = 192
-    # windowed scoring (side length in px; 0 = off).  Not ported yet:
-    # a value > 0 raises NotImplementedError.
+    # windowed scoring (side length in px; 0 = off): the plain scorer
+    # gathers from a window of the field around the last pose when the
+    # frame provably fits it (match/associate.score_candidates).
     score_window: int = 0
     # exact candidate pruning: every live candidate gets a provable
     # lower bound on its CalcScore from a min-pooled+eroded coarse

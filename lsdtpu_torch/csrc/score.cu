@@ -10,12 +10,23 @@
 //   tx = (px - sx)*ca - (py - sy)*sa + mx
 //   ty = (px - sx)*sa + (py - sy)*ca + my
 //   ix, iy = C-round(tx), C-round(ty)           (half away from zero)
-//   inside = 0 <= ix < cols, 0 <= iy < rows, row0 <= iy < row0 + block_h
-//   v = cache[iy - row0, ix]; at_cap = v >= z
+//   inside = 0 <= ix < cols, 0 <= iy < rows, and (ix, iy) in the block:
+//            row0 <= iy < row0 + block_h, col0 <= ix < col0 + block_w
+//   v, at_cap = dequant(cache[(iy - row0) * pitch + (ix - col0)])
 //   contrib = at_cap ? penalty : v
 //   sum_d += contrib, n_valid += 1              (inside pixels)
 //   sum_far += contrib, n_far += 1              (inside and (at_cap or v >= omd))
 // finalize_scores (match/associate.py) turns the partials into scores.
+//
+// The field is stored in one of the types of match.cache_dtype
+// (match/associate.py:quantize_cache): the working float type (v is the
+// cell, at_cap is v >= z), bfloat16 (v is the cell widened, at_cap is
+// v >= z), or the fixed-point codes u16/u8 (v = code * scale, scale =
+// z / 65535 or z / 255 rounded to the working type, at_cap is code ==
+// 65535 or 255).  The block is the whole field (row0 = col0 = 0) or a
+// window of it (windowed scoring): cache points at the block's first
+// cell and pitch is the field's row stride, so a window is read in
+// place, never copied.
 //
 // Bound.  Bytes: the 6 features of each live candidate, the live pixel
 // cloud, each distinct field cell the live pairs touch and the 4 outputs
@@ -86,6 +97,7 @@
 // when the block has >= 2^31 cells.  Shared memory is static, under 7 KB
 // a block.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -112,17 +124,48 @@ __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(
 __device__ __forceinline__ int trunc_int(float a) { return __float2int_rz(a); }
 __device__ __forceinline__ int trunc_int(double a) { return __double2int_rz(a); }
 
-template <typename T, typename I>
+// The stored cell as (value, at-cap predicate) in the working type T.
+template <typename T, typename S> struct Cell {      // the float field
+  static __device__ __forceinline__ T value(S c, T) { return c; }
+  static __device__ __forceinline__ bool at_cap(S, T v, T z) { return v >= z; }
+};
+template <typename T> struct Cell<T, __nv_bfloat16> {
+  static __device__ __forceinline__ T value(__nv_bfloat16 c, T) {
+    return static_cast<T>(__bfloat162float(c));
+  }
+  static __device__ __forceinline__ bool at_cap(__nv_bfloat16, T v, T z) {
+    return v >= z;
+  }
+};
+template <typename T> struct Cell<T, uint16_t> {
+  static __device__ __forceinline__ T value(uint16_t c, T scale) {
+    return mul_rn(static_cast<T>(c), scale);
+  }
+  static __device__ __forceinline__ bool at_cap(uint16_t c, T, T) {
+    return c == 65535;
+  }
+};
+template <typename T> struct Cell<T, uint8_t> {
+  static __device__ __forceinline__ T value(uint8_t c, T scale) {
+    return mul_rn(static_cast<T>(c), scale);
+  }
+  static __device__ __forceinline__ bool at_cap(uint8_t c, T, T) {
+    return c == 255;
+  }
+};
+
+template <typename T, typename S, typename I>
 __global__ void __launch_bounds__(kThreads, Resident<T>::kBlocks)
 score_partials_kernel(const T* __restrict__ cand, int K,
                       const int32_t* __restrict__ idx,
                       const int32_t* __restrict__ n_cand,
                       const T* __restrict__ px, const T* __restrict__ py,
                       int P, const int32_t* __restrict__ n_pix_live,
-                      const T* __restrict__ cache, int block_h, int pad_cols,
-                      int row0, int rows, int cols, T z, T penalty, T omd,
-                      T* __restrict__ sum_d, int32_t* __restrict__ n_valid,
-                      T* __restrict__ sum_far, int32_t* __restrict__ n_far) {
+                      const S* __restrict__ cache, int block_h, int block_w,
+                      int pitch, int row0, int col0, int rows, int cols, T z,
+                      T penalty, T omd, T scale, T* __restrict__ sum_d,
+                      int32_t* __restrict__ n_valid, T* __restrict__ sum_far,
+                      int32_t* __restrict__ n_far) {
   __shared__ T sh_feat[kSlots][6];           // features of the batch
   __shared__ T sh_sum[kSlots][kWarps][2];    // warp partials of each slot
   __shared__ int sh_cnt[kSlots][kWarps];
@@ -166,10 +209,12 @@ score_partials_kernel(const T* __restrict__ cand, int K,
     n_far[b] = 0;
   }
   // exact thresholds on a = v + copysign(0.5, v) for the bounds test
-  const int lo_row = max(row0, 0);
-  const int hi_col = min(cols, pad_cols), hi_row = min(rows, row0 + block_h);
-  const bool none = hi_col <= 0 || hi_row <= lo_row;
-  const T x_lo = T(-1), x_hi = none ? T(-2) : T(hi_col);
+  const int lo_row = max(row0, 0), lo_col = max(col0, 0);
+  const int hi_col = min(cols, col0 + block_w);
+  const int hi_row = min(rows, row0 + block_h);
+  const bool none = hi_col <= lo_col || hi_row <= lo_row;
+  const T x_lo = lo_col > 0 ? nextafter(T(lo_col), T(-1)) : T(-1);
+  const T x_hi = none ? T(-2) : T(hi_col);
   const T y_lo = lo_row > 0 ? nextafter(T(lo_row), T(-1)) : T(-1);
   const T y_hi = T(hi_row);
   // no cell is inside: nothing is gathered (cell 0 may not exist)
@@ -191,7 +236,8 @@ score_partials_kernel(const T* __restrict__ cand, int K,
       T s_d = T(0), s_far = T(0);
       int cnt = 0;             // n_valid + (n_far << 16)
       for (int q0 = 0; q0 < n_scored; q0 += kHeld) {
-        T x[kPix], y[kPix], v[kPix];
+        T x[kPix], y[kPix];
+        S v[kPix];
         if (q0 == 0) {
 #pragma unroll
           for (int u = 0; u < kPix; ++u) {
@@ -222,8 +268,8 @@ score_partials_kernel(const T* __restrict__ cand, int K,
           const bool inside = q0 + tid + kThreads * u < n_pix && ax > x_lo &&
                               ax < x_hi && ay > y_lo && ay < y_hi;
           const I lin = inside
-              ? static_cast<I>(trunc_int(ay) - row0) * pad_cols +
-                    static_cast<I>(trunc_int(ax))
+              ? static_cast<I>(trunc_int(ay) - row0) * pitch +
+                    static_cast<I>(trunc_int(ax) - col0)
               : I(0);
           v[u] = __ldg(cache + lin);
           in |= inside ? 1u << u : 0u;
@@ -231,9 +277,10 @@ score_partials_kernel(const T* __restrict__ cand, int K,
 #pragma unroll
         for (int u = 0; u < kPix; ++u) {
           if (in & (1u << u)) {
-            const bool at_cap = v[u] >= z;
-            const T contrib = at_cap ? penalty : v[u];
-            const bool far = at_cap || v[u] >= omd;
+            const T val = Cell<T, S>::value(v[u], scale);
+            const bool at_cap = Cell<T, S>::at_cap(v[u], val, z);
+            const T contrib = at_cap ? penalty : val;
+            const bool far = at_cap || val >= omd;
             s_d += contrib;
             if (far) s_far += contrib;
             cnt += far ? 0x10001 : 1;
@@ -272,25 +319,28 @@ score_partials_kernel(const T* __restrict__ cand, int K,
   }
 }
 
-template <typename T>
+template <typename T, typename S>
 cudaError_t launch(const T* cand, int K, const int32_t* idx,
                    const int32_t* n_cand, const T* px, const T* py, int P,
-                   const int32_t* n_pix, const T* cache, int block_h,
-                   int pad_cols, int row0, int rows, int cols, T z,
-                   T penalty, T omd, T* sum_d, int32_t* n_valid, T* sum_far,
-                   int32_t* n_far, int grid, void* stream) {
+                   const int32_t* n_pix, const S* cache, int block_h,
+                   int block_w, int pitch, int row0, int col0, int rows,
+                   int cols, T z, T penalty, T omd, T scale, T* sum_d,
+                   int32_t* n_valid, T* sum_far, int32_t* n_far, int grid,
+                   void* stream) {
   if (K <= 0) return cudaSuccess;
-  if (grid <= 0) return cudaErrorInvalidValue;
+  if (grid <= 0 || block_w > pitch) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long cells = static_cast<long long>(block_h) * pad_cols;
+  const long long cells = static_cast<long long>(block_h) * pitch;
   if (cells >= (1LL << 31)) {
-    score_partials_kernel<T, int64_t><<<grid, kThreads, 0, s>>>(
-        cand, K, idx, n_cand, px, py, P, n_pix, cache, block_h, pad_cols,
-        row0, rows, cols, z, penalty, omd, sum_d, n_valid, sum_far, n_far);
+    score_partials_kernel<T, S, int64_t><<<grid, kThreads, 0, s>>>(
+        cand, K, idx, n_cand, px, py, P, n_pix, cache, block_h, block_w,
+        pitch, row0, col0, rows, cols, z, penalty, omd, scale, sum_d, n_valid,
+        sum_far, n_far);
   } else {
-    score_partials_kernel<T, int32_t><<<grid, kThreads, 0, s>>>(
-        cand, K, idx, n_cand, px, py, P, n_pix, cache, block_h, pad_cols,
-        row0, rows, cols, z, penalty, omd, sum_d, n_valid, sum_far, n_far);
+    score_partials_kernel<T, S, int32_t><<<grid, kThreads, 0, s>>>(
+        cand, K, idx, n_cand, px, py, P, n_pix, cache, block_h, block_w,
+        pitch, row0, col0, rows, cols, z, penalty, omd, scale, sum_d, n_valid,
+        sum_far, n_far);
   }
   return cudaGetLastError();
 }
@@ -308,28 +358,29 @@ void lsd_score_plan_constants(int32_t* out) {
   out[3] = Resident<double>::kBlocks;
 }
 
-cudaError_t lsd_score_partials_f32(
-    const float* cand, int K, const int32_t* idx, const int32_t* n_cand,
-    const float* px, const float* py, int P, const int32_t* n_pix,
-    const float* cache, int block_h, int pad_cols, int row0, int rows,
-    int cols, float z, float penalty, float omd, float* sum_d,
-    int32_t* n_valid, float* sum_far, int32_t* n_far, int grid,
-    void* stream) {
-  return launch<float>(cand, K, idx, n_cand, px, py, P, n_pix, cache,
-                       block_h, pad_cols, row0, rows, cols, z, penalty, omd,
-                       sum_d, n_valid, sum_far, n_far, grid, stream);
-}
+// lsd_score_partials_<working type>_<field storage type>: one entry
+// point per instantiation the wrapper binds (ops/score.py:_kernel).
+#define LSD_SCORE_ENTRY(NAME, T, S)                                          \
+  cudaError_t NAME(const T* cand, int K, const int32_t* idx,                 \
+                   const int32_t* n_cand, const T* px, const T* py, int P,   \
+                   const int32_t* n_pix, const S* cache, int block_h,        \
+                   int block_w, int pitch, int row0, int col0, int rows,     \
+                   int cols, T z, T penalty, T omd, T scale, T* sum_d,       \
+                   int32_t* n_valid, T* sum_far, int32_t* n_far, int grid,   \
+                   void* stream) {                                           \
+    return launch<T, S>(cand, K, idx, n_cand, px, py, P, n_pix, cache,       \
+                        block_h, block_w, pitch, row0, col0, rows, cols, z,  \
+                        penalty, omd, scale, sum_d, n_valid, sum_far, n_far, \
+                        grid, stream);                                       \
+  }
 
-cudaError_t lsd_score_partials_f64(
-    const double* cand, int K, const int32_t* idx, const int32_t* n_cand,
-    const double* px, const double* py, int P, const int32_t* n_pix,
-    const double* cache, int block_h, int pad_cols, int row0, int rows,
-    int cols, double z, double penalty, double omd, double* sum_d,
-    int32_t* n_valid, double* sum_far, int32_t* n_far, int grid,
-    void* stream) {
-  return launch<double>(cand, K, idx, n_cand, px, py, P, n_pix, cache,
-                        block_h, pad_cols, row0, rows, cols, z, penalty, omd,
-                        sum_d, n_valid, sum_far, n_far, grid, stream);
-}
+LSD_SCORE_ENTRY(lsd_score_partials_f32_f32, float, float)
+LSD_SCORE_ENTRY(lsd_score_partials_f32_bf16, float, __nv_bfloat16)
+LSD_SCORE_ENTRY(lsd_score_partials_f32_u16, float, uint16_t)
+LSD_SCORE_ENTRY(lsd_score_partials_f32_u8, float, uint8_t)
+LSD_SCORE_ENTRY(lsd_score_partials_f64_f64, double, double)
+LSD_SCORE_ENTRY(lsd_score_partials_f64_bf16, double, __nv_bfloat16)
+LSD_SCORE_ENTRY(lsd_score_partials_f64_u16, double, uint16_t)
+LSD_SCORE_ENTRY(lsd_score_partials_f64_u8, double, uint8_t)
 
 }  // extern "C"

@@ -40,7 +40,7 @@ class Scene:
 
 
 def synth_map(seed, H=200, W=260, n_walls=None, clear_px=0.0,
-              wall_scale=None):
+              wall_scale=None, pillars=0):
     """Random room: a free-space rectangle with boundary walls plus
     interior wall segments (2-4 drawn from the seed when ``n_walls`` is
     None), surrounded by unknown cells - the dataset value convention
@@ -48,7 +48,10 @@ def synth_map(seed, H=200, W=260, n_walls=None, clear_px=0.0,
     within ``clear_px`` of the map centre (where the trajectory starts)
     is drawn from the seed but left out.  Interior wall lengths and
     margins scale by ``wall_scale`` (default: the map's shorter side over
-    200 px, at least 1).  Returns (grid, walls)."""
+    200 px, at least 1).  ``pillars`` round pillars (filled discs of
+    radius 3-6 px times the scale, outside ``clear_px`` of the centre)
+    are drawn from a stream of their own, so the walls stay those of
+    the same seed without them.  Returns (grid, walls)."""
     rng = np.random.default_rng(seed)
     s = max(1.0, min(H, W) / 200.0) if wall_scale is None else wall_scale
 
@@ -85,6 +88,17 @@ def synth_map(seed, H=200, W=260, n_walls=None, clear_px=0.0,
             continue
         g[wall[1]:wall[3] + 1, wall[0]:wall[2] + 1] = 1
         walls.append(wall)
+    prng = np.random.default_rng([seed, 1])
+    yy, xx = np.mgrid[0:H, 0:W]
+    placed = 0
+    while placed < pillars:
+        r = prng.uniform(3.0, 6.0) * s
+        py = prng.uniform(y0 + r + 2, y1 - r - 2)
+        px = prng.uniform(x0 + r + 2, x1 - r - 2)
+        if (py - cy) ** 2 + (px - cx) ** 2 < (clear_px + r) ** 2:
+            continue
+        g[(yy - py) ** 2 + (xx - px) ** 2 <= r * r] = 1
+        placed += 1
     return g, np.asarray(walls, np.float64)
 
 
@@ -107,12 +121,13 @@ def raycast(g, wx, wy, n=360, rmax=10.0, resol=RESOL, ori_x=ORI_X,
 
 def synth_dataset(seed, F=10, H=200, W=260, resol=RESOL, ori_x=ORI_X,
                   ori_y=ORI_Y, rmax=10.0, n_walls=None,
-                  clear_m=0.0, wall_scale=None) -> Scene:
+                  clear_m=0.0, wall_scale=None, pillars=0) -> Scene:
     """Random-walk trajectory from the map centre + raycast scans +
-    noisy odometry; no interior wall passes within ``clear_m`` meters of
-    the start."""
+    noisy odometry; no interior wall or pillar comes within ``clear_m``
+    meters of the start."""
     rng = np.random.default_rng(1000 + seed)
-    g, walls = synth_map(seed, H, W, n_walls, clear_m / resol, wall_scale)
+    g, walls = synth_map(seed, H, W, n_walls, clear_m / resol, wall_scale,
+                         pillars)
     pos = np.zeros((F, 2))
     pos[0] = (ori_x + W / 2 * resol, ori_y + H / 2 * resol)
     for f in range(1, F):

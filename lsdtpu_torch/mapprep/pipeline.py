@@ -33,7 +33,9 @@ def prepare_map(map_value, resol: float, z_occ_max_dis: float = 1.0,
                 dtype=torch.float32, device="cuda",
                 stats: Optional[MapPrepStats] = None) -> MapArtifacts:
     """Map artifacts of an occupancy grid ({0 unknown, 1 occupied, 255
-    free}), computed in ``dtype`` on ``device``.  Raises when the map
+    free}), computed in ``dtype`` on ``device``.  growth: "wave" or
+    "fifo" (the reference's exact acceptance order; the reference
+    package's configuration default, lsd.growth).  Raises when the map
     gives more than ``max_lines`` lines.
 
     mapCache sees the PRE-remap occupancy values (occupied == 1): the

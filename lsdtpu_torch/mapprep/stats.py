@@ -13,7 +13,11 @@ import torch
 @dataclasses.dataclass
 class MapPrepStats:
     seeds: int = 0       # seed-walk iterations (seed pixels visited)
-    waves: int = 0       # region-growth waves
+    waves: int = 0       # region-growth waves (wave growth)
+    fifo_calls: int = 0  # FIFO growth calls (grow_fifo launches on the card)
+    pops: int = 0        # pixels popped from the FIFO queues, all passes
+    passes: int = 0      # FIFO queue passes (the first and every re-sweep)
+    reducer_passes: int = 0  # FIFO radius-reducer passes (launches)
     nfa_calls: int = 0   # rect_counts calls (kernel launches on the card)
     nfa_rects: int = 0   # rectangles counted over all calls
     syncs: int = 0       # device -> host reads the loop waited on

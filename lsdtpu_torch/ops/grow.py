@@ -1,0 +1,342 @@
+"""Exact FIFO region growth and the FIFO radius reducer: the wrappers
+around the hand-written CUDA kernels (csrc/grow.cu) and their plain
+versions.
+
+No TPU kernel stands behind these: the reference package runs them as
+XLA while_loops, lsdtpu/mapprep/lsd.py:_grow_fifo and
+lsdtpu/mapprep/rect.py:radius_reducer_fifo (reference: RegionGrower and
+RegionRadiusReducer, LSD/myLSD.cpp:491-590, 736-802).  Both are serial
+queue walks, so eager PyTorch would pay tens of launches per popped
+pixel; on the card each call is one launch of a one-block kernel.
+
+``grow_fifo`` and ``radius_reducer_fifo`` launch their kernels for CUDA
+tensors and count the launches (``.launches``); for CPU tensors, and
+only then, they call ``grow_fifo_reference`` and
+``radius_reducer_fifo_reference``, host loops over the same arrays.
+Nothing falls back: a CUDA input a kernel does not take raises.
+
+The region's start angle is that of the seed pixel, whose sin and cos
+come from the per-map tables ``sin_map``/``cos_map`` (sin/cos of
+``deg_map``), as does every sin/cos the running mean adds: the kernel
+and the plain version then differ only in atan2.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from lsdtpu_torch.ops import build
+
+PI = math.pi
+THREADS = 256     # csrc/grow.cu's block size (checked when the library loads)
+
+_FN: dict = {}
+
+
+class Growth(NamedTuple):
+    """One grown region."""
+
+    cur: torch.Tensor      # (H, W) bool region mask
+    reg_deg: torch.Tensor  # () running region angle, the working dtype
+    qy: torch.Tensor       # (cap,) int32 queue buffers: the first n
+    qx: torch.Tensor       # entries in acceptance order
+    counts: torch.Tensor   # (3,) int32 [n, popped pixels, passes]
+
+
+def fifo_queue(H: int, W: int, device):
+    """(qy, qx) queue buffers at the cap H*W, allocated once per map and
+    reused by every growth call: every pixel enters a queue at most once,
+    so the cap can never bind."""
+    return (torch.empty(H * W, dtype=torch.int32, device=device),
+            torch.empty(H * W, dtype=torch.int32, device=device))
+
+
+def clear_split(cells: int):
+    """The cells each thread of the kernel's block clears: 4-byte words
+    t, t + THREADS, ..., then tail byte t below cells % 4."""
+    words = cells // 4
+    return [[c for w in range(t, words, THREADS) for c in range(4 * w,
+                                                                4 * w + 4)]
+            + ([4 * words + t] if t < cells % 4 else [])
+            for t in range(THREADS)]
+
+
+def _lib(name, dtype):
+    key = (name, dtype)
+    if key not in _FN:
+        lib = build.load_library("grow")
+        lib.lsd_grow_threads.restype = ctypes.c_int32
+        if lib.lsd_grow_threads() != THREADS:
+            raise RuntimeError(f"csrc/grow.cu's block size "
+                               f"{lib.lsd_grow_threads()} is not "
+                               f"ops/grow.py's {THREADS}")
+        sfx = "f32" if dtype == torch.float32 else "f64"
+        real = ctypes.c_float if dtype == torch.float32 else ctypes.c_double
+        p, i = ctypes.c_void_p, ctypes.c_int
+        if name == "grow":
+            fn = getattr(lib, f"lsd_grow_fifo_{sfx}")
+            fn.argtypes = [i, i, real, p, p, p, p, p, i, i, p, p, p, p, p, p]
+        else:
+            fn = getattr(lib, f"lsd_radius_reducer_fifo_{sfx}")
+            fn.argtypes = [i, i, real, p, p, p, p, p, i, p]
+        fn.restype = ctypes.c_int
+        _FN[key] = fn
+    return _FN[key]
+
+
+PROBE_RING = 1024  # csrc/grow.cu's kProbeRing
+
+
+def latency_probe(device="cuda", steps: int = 4096) -> dict:
+    """SM cycles of one dependent step on the card, for the queue
+    kernels' chain bound: a shared-memory load ("smem_load"), an L1 hit
+    on the read-only path ("l1_load"), and an atan2 in each working type
+    ("atan2_float64", "atan2_float32"); each the mean over a chain of
+    ``steps`` (csrc/grow.cu:latency_probe_kernel, one thread, clock64).
+    A measurement, not a kernel of map prep: it is not counted."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"the latency probe runs on a CUDA device, not {dev}")
+    lib = build.load_library("grow")
+    fn = lib.lsd_grow_latency_probe
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    ring = (torch.arange(1, PROBE_RING + 1, device=dev) % PROBE_RING).to(
+        torch.int32)
+    out = torch.zeros(5, dtype=torch.int64, device=dev)
+    err = fn(ring.data_ptr(), steps, out.data_ptr(),
+             torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"latency probe launch failed: CUDA error {err}")
+    cycles = out.cpu().tolist()
+    return {k: cycles[i] / steps for i, k in enumerate(
+        ("smem_load", "l1_load", "atan2_float64", "atan2_float32"))}
+
+
+def _check_grow(seed_y, seed_x, deg_thre, ban, deg_map, sin_map, cos_map,
+                queue):
+    dt = deg_map.dtype
+    if dt not in (torch.float32, torch.float64):
+        raise TypeError(f"grow_fifo takes float32/float64, got {dt}")
+    if deg_map.dim() != 2:
+        raise ValueError(f"deg_map must be (H, W), got {tuple(deg_map.shape)}")
+    H, W = deg_map.shape
+    if not (0 <= seed_y < H and 0 <= seed_x < W):
+        raise ValueError(f"seed ({seed_y}, {seed_x}) outside {H}x{W}")
+    for name, t in (("sin_map", sin_map), ("cos_map", cos_map)):
+        if t.dtype != dt or t.shape != deg_map.shape:
+            raise TypeError(f"{name} must be {dt} {tuple(deg_map.shape)}")
+    if ban.dtype != torch.bool or ban.shape != deg_map.shape:
+        raise TypeError("ban must be a bool mask of deg_map's shape")
+    qy, qx = queue
+    for t in (qy, qx):
+        if t.dtype != torch.int32 or t.dim() != 1:
+            raise TypeError("the queue buffers must be int32 vectors")
+        if t.numel() < H * W:
+            raise ValueError(
+                f"queue cap {t.numel()} < H*W={H * W}: an undersized queue "
+                "would silently truncate region growth")
+    tensors = [ban, deg_map, sin_map, cos_map, qy, qx]
+    if torch.is_tensor(deg_thre):
+        if deg_thre.dtype != dt or deg_thre.numel() != 1:
+            raise TypeError(f"deg_thre must be a one-element {dt} tensor")
+        tensors.append(deg_thre)
+    for t in tensors:
+        if t.device != deg_map.device:
+            raise ValueError(f"all inputs must be on {deg_map.device}, got "
+                             f"{t.device}")
+        if not t.is_contiguous():
+            raise ValueError("grow_fifo inputs must be contiguous")
+
+
+def grow_fifo(seed_y: int, seed_x: int, deg_thre, ban, deg_map, sin_map,
+              cos_map, queue=None) -> Growth:
+    """Exact-order FIFO region growth from (seed_y, seed_x).
+
+    deg_thre: the angle tolerance, a float or a one-element tensor of
+    deg_map's dtype on its device (read there, no host sync); ban: (H, W)
+    bool, the pixels growth may not enter (used == 1); deg_map, sin_map,
+    cos_map: (H, W) level-line angles and their sin/cos; queue: the
+    per-map (qy, qx) buffers of fifo_queue (allocated here when None)."""
+    H, W = deg_map.shape
+    if queue is None:
+        queue = fifo_queue(H, W, deg_map.device)
+    _check_grow(seed_y, seed_x, deg_thre, ban, deg_map, sin_map, cos_map,
+                queue)
+    if deg_map.device.type == "cpu":
+        return grow_fifo_reference(seed_y, seed_x, deg_thre, ban, deg_map,
+                                   sin_map, cos_map, queue)
+    if deg_map.device.type != "cuda":
+        raise ValueError(f"no kernel for device {deg_map.device}")
+    dev = deg_map.device
+    qy, qx = queue
+    cur = torch.empty((H, W), dtype=torch.bool, device=dev)
+    reg_deg = torch.empty((), dtype=deg_map.dtype, device=dev)
+    counts = torch.empty(3, dtype=torch.int32, device=dev)
+    thre_t = torch.is_tensor(deg_thre)
+    err = _lib("grow", deg_map.dtype)(
+        int(seed_y), int(seed_x), 0.0 if thre_t else float(deg_thre),
+        deg_thre.data_ptr() if thre_t else None, ban.data_ptr(),
+        deg_map.data_ptr(), sin_map.data_ptr(), cos_map.data_ptr(), H, W,
+        qy.data_ptr(), qx.data_ptr(), cur.data_ptr(), reg_deg.data_ptr(),
+        counts.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"grow_fifo kernel launch failed: CUDA error {err}")
+    grow_fifo.launches += 1
+    return Growth(cur, reg_deg, qy, qx, counts)
+
+
+grow_fifo.launches = 0
+
+
+def _scalar_ops(dtype):
+    """(cast, atan2, sqrt) of host scalars in ``dtype``: Python floats for
+    float64, numpy float32 scalars (rounded after every operation) for
+    float32."""
+    if dtype == torch.float64:
+        return float, math.atan2, math.sqrt
+    return np.float32, np.arctan2, np.sqrt
+
+
+def grow_fifo_reference(seed_y: int, seed_x: int, deg_thre, ban, deg_map,
+                        sin_map, cos_map, queue) -> Growth:
+    """Plain version of grow_fifo (same contract), a host loop over the
+    CPU tensors' buffers."""
+    H, W = deg_map.shape
+    t, atan2, _ = _scalar_ops(deg_map.dtype)
+    deg = memoryview(deg_map.reshape(-1).numpy())
+    sn = memoryview(sin_map.reshape(-1).numpy())
+    cs = memoryview(cos_map.reshape(-1).numpy())
+    banned = memoryview(ban.reshape(-1).numpy())
+    thre = t(float(deg_thre))
+    fold, two_pi = t(1.5 * PI), t(2.0 * PI)
+    s = seed_y * W + seed_x
+    s_sin, s_cos = t(sn[s]), t(cs[s])
+    d = atan2(s_sin, s_cos)
+    cur = bytearray(H * W)
+    cur[s] = 1
+    qy, qx = [seed_y], [seed_x]
+    pops = passes = ex = 0
+    while ex != len(qy):
+        ex = len(qy)
+        passes += 1
+        i = 0
+        while i < len(qy):
+            ry, rx = qy[i], qx[i]
+            i += 1
+            pops += 1
+            for m in (ry - 1, ry, ry + 1):
+                if not 0 <= m < H:
+                    continue
+                for n in (rx - 1, rx, rx + 1):
+                    if not 0 <= n < W:
+                        continue
+                    k = m * W + n
+                    if cur[k] or banned[k]:
+                        continue
+                    cd = t(deg[k])
+                    dif = abs(d - cd)
+                    if dif > fold:
+                        dif = abs(dif - two_pi)
+                    if dif < thre:
+                        s_sin = s_sin + t(sn[k])
+                        s_cos = s_cos + t(cs[k])
+                        d = atan2(s_sin, s_cos)
+                        cur[k] = 1
+                        qy.append(m)
+                        qx.append(n)
+    n = len(qy)
+    queue[0][:n] = torch.tensor(qy, dtype=torch.int32)
+    queue[1][:n] = torch.tensor(qx, dtype=torch.int32)
+    mask = torch.from_numpy(np.frombuffer(cur, dtype=np.bool_).copy())
+    return Growth(mask.reshape(H, W),
+                  torch.tensor(float(d), dtype=deg_map.dtype), queue[0],
+                  queue[1], torch.tensor([n, pops, passes],
+                                         dtype=torch.int32))
+
+
+def _check_reduce(qy, qx, n, cur, fit):
+    for name, t in (("qy", qy), ("qx", qx), ("n", n)):
+        if t.dtype != torch.int32 or t.dim() != 1:
+            raise TypeError(f"{name} must be an int32 vector")
+    if n.numel() != 1:
+        raise TypeError("n must be a one-element int32 tensor")
+    for name, t in (("cur", cur), ("fit", fit)):
+        if t.dtype != torch.bool or t.dim() != 2:
+            raise TypeError(f"{name} must be an (H, W) bool mask")
+    if fit.shape != cur.shape:
+        raise ValueError("cur and fit must have one shape")
+    for t in (qx, n, cur, fit):
+        if t.device != qy.device:
+            raise ValueError(f"all inputs must be on {qy.device}, got "
+                             f"{t.device}")
+    for t in (qy, qx, n, cur, fit):
+        if not t.is_contiguous():
+            raise ValueError("radius_reducer_fifo inputs must be contiguous")
+
+
+def radius_reducer_fifo(seed_x: int, seed_y: int, rad, qy, qx, n, cur, fit):
+    """One shrink pass of the FIFO radius reducer, in place.
+
+    rad: the pass's radius, a numpy scalar of the working dtype
+    (float32 or float64); qy, qx: the queue, whose first n (a
+    one-element int32 tensor, updated) entries are live; cur: the region
+    mask, fit: the mask the rectangle is fitted on (both updated)."""
+    _check_reduce(qy, qx, n, cur, fit)
+    if not isinstance(rad, (np.float32, np.float64)):
+        raise TypeError(f"rad must be a numpy float32/float64 scalar, got "
+                        f"{type(rad).__name__}")
+    if qy.device.type == "cpu":
+        return radius_reducer_fifo_reference(seed_x, seed_y, rad, qy, qx, n,
+                                             cur, fit)
+    if qy.device.type != "cuda":
+        raise ValueError(f"no kernel for device {qy.device}")
+    dt = torch.float32 if isinstance(rad, np.float32) else torch.float64
+    err = _lib("reduce", dt)(
+        int(seed_x), int(seed_y), float(rad), qy.data_ptr(), qx.data_ptr(),
+        n.data_ptr(), cur.data_ptr(), fit.data_ptr(), cur.shape[1],
+        torch.cuda.current_stream(qy.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"radius_reducer_fifo kernel launch failed: CUDA "
+                           f"error {err}")
+    radius_reducer_fifo.launches += 1
+
+
+radius_reducer_fifo.launches = 0
+
+
+def radius_reducer_fifo_reference(seed_x: int, seed_y: int, rad, qy, qx, n,
+                                  cur, fit):
+    """Plain version of radius_reducer_fifo (same contract), a host loop."""
+    t, _, sqrt = _scalar_ops(torch.float32 if isinstance(rad, np.float32)
+                             else torch.float64)
+    W = cur.shape[1]
+    fx, fy = t(seed_x), t(seed_y)
+    rad = t(rad)
+    m = int(n[0])
+    ys, xs = qy[:m].tolist(), qx[:m].tolist()
+    cm, fm = cur.reshape(-1), fit.reshape(-1)
+    k, i = m, 0
+    while i < k:
+        yi, xi = ys[i], xs[i]
+        dx, dy = fx - t(xi), fy - t(yi)
+        if sqrt(dx * dx + dy * dy) > rad:
+            ys[i], xs[i] = ys[k - 1], xs[k - 1]
+            k -= 1
+            cm[yi * W + xi] = False
+            fm[yi * W + xi] = False
+        else:
+            i += 1
+    if sqrt(fx * fx + fy * fy) > rad and k > 0:
+        fm[ys[k - 1] * W + xs[k - 1]] = False
+        cm[0] = False
+        k -= 1
+    qy[:m] = torch.tensor(ys, dtype=torch.int32)
+    qx[:m] = torch.tensor(xs, dtype=torch.int32)
+    n[0] = k

@@ -13,6 +13,12 @@ launch in ``score_partials.launches``; for CPU tensors, and only then,
 it calls ``score_partials_reference``.  Nothing falls back: a CUDA
 input the kernel does not take raises.
 
+The field is stored in the working float type, bfloat16, or the
+fixed-point u16/u8 codes of match.cache_dtype (``dequant``; the kernel
+dequantizes each gathered cell).  It is the whole map or a window of it
+(``col0``): a row-major view whose row stride the kernel takes as its
+pitch, so the window is read in place.
+
 The kernel runs a persistent grid (``plan``: the card's SMs x the
 blocks its launch bounds keep resident, fixed from the caps, never from
 the live counts); block b scores the live slots b, b + grid, ..., each
@@ -36,6 +42,15 @@ PIX = 8                       # pixels a thread holds
 HELD = THREADS * PIX          # pixels a block holds per round
 RESIDENT = {torch.float32: 3, torch.float64: 2}   # blocks per SM
 MAX_PIXELS = 1 << 18          # a warp's counts pack n_far << 16
+U16_MAX = 65535
+U8_MAX = 255
+# fixed-point codes: the top code marks the cells at/above the cap
+TOP_CODE = {torch.uint16: U16_MAX, torch.uint8: U8_MAX}
+# the field storage types the kernel takes for each working type
+STORAGE = {dt: (dt, torch.bfloat16, torch.uint16, torch.uint8)
+           for dt in (torch.float32, torch.float64)}
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64", torch.bfloat16: "bf16",
+           torch.uint16: "u16", torch.uint8: "u8"}
 
 _FN: dict = {}
 _SMS: dict = {}
@@ -69,9 +84,46 @@ def split(grid: int, n_live: int, n_pix: int):
     return slots, pixels
 
 
-def _kernel(dtype):
-    """The ctypes launcher for ``dtype`` (builds csrc/score.cu once)."""
-    if dtype not in _FN:
+def scale(z_occ_max_dis: float, storage, dtype) -> float:
+    """The dequantization step of a fixed-point field: z / top code,
+    computed in double and rounded to the working type (as the reference
+    package's weakly typed Python scalar); 1.0 for a float field."""
+    if storage not in TOP_CODE:
+        return 1.0
+    return float(torch.tensor(z_occ_max_dis / TOP_CODE[storage],
+                              dtype=dtype))
+
+
+def cells(field, *index):
+    """field[index] for any storage type.  u16 codes come back widened to
+    int32: PyTorch has few uint16 kernels, and none that index on the
+    card, so they are gathered through an int16 view (exact)."""
+    if field.dtype == torch.uint16:
+        return field.view(torch.int16)[index].to(torch.int32) & U16_MAX
+    return field[index]
+
+
+def dequant(vals, dt, z_occ_max_dis: float, storage=None):
+    """Gathered field cells of a ``storage`` field (default: vals' own
+    type; ``cells`` widens u16 codes) -> (values in ``dt``, at-cap
+    predicate): a fixed-point code is code * scale and at the cap
+    exactly at the top code; a float cell is widened and at the cap
+    where >= z."""
+    storage = vals.dtype if storage is None else storage
+    if storage in TOP_CODE:
+        at_cap = vals == TOP_CODE[storage]
+        step = torch.tensor(scale(z_occ_max_dis, storage, dt), dtype=dt,
+                            device=vals.device)
+        return vals.to(dt) * step, at_cap
+    v = vals.to(dt)
+    return v, v >= z_occ_max_dis
+
+
+def _kernel(dtype, storage):
+    """The ctypes launcher for ``dtype`` over a ``storage`` field (builds
+    csrc/score.cu once)."""
+    key = (dtype, storage)
+    if key not in _FN:
         lib = build.load_library("score")
         got = (ctypes.c_int32 * 4)()
         lib.lsd_score_plan_constants.argtypes = [ctypes.c_void_p]
@@ -82,15 +134,15 @@ def _kernel(dtype):
         if list(got) != want:
             raise RuntimeError(f"csrc/score.cu's plan constants {list(got)} "
                                f"are not ops/score.py's {want}")
-        fn = lib.lsd_score_partials_f32 if dtype == torch.float32 \
-            else lib.lsd_score_partials_f64
+        fn = getattr(lib, f"lsd_score_partials_{_SUFFIX[dtype]}_"
+                          f"{_SUFFIX[storage]}")
         real = ctypes.c_float if dtype == torch.float32 else ctypes.c_double
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, i, p, p, p, p, i, p, p, i, i, i, i, i,
-                       real, real, real, p, p, p, p, i, p]
+        fn.argtypes = [p, i, p, p, p, p, i, p, p, i, i, i, i, i, i, i,
+                       real, real, real, real, p, p, p, p, i, p]
         fn.restype = ctypes.c_int
-        _FN[dtype] = fn
-    return _FN[dtype]
+        _FN[key] = fn
+    return _FN[key]
 
 
 def _sm_count(device) -> int:
@@ -111,59 +163,68 @@ def _check(cand6, idx, n_cand, px, py, n_pix, cache):
         raise ValueError("px, py must be equal (P,) vectors")
     if cache.dim() != 2:
         raise ValueError("cache must be a 2-D field block")
-    for name, t in (("px", px), ("py", py), ("cache", cache)):
+    for name, t in (("px", px), ("py", py)):
         if t.dtype != dt:
             raise TypeError(f"{name} is {t.dtype}, cand6 is {dt}")
+    if cache.dtype not in STORAGE[dt]:
+        raise TypeError(f"a {cache.dtype} field with {dt} scoring: the "
+                        f"kernel takes {STORAGE[dt]}")
+    if cache.stride(1) != 1 or cache.stride(0) < cache.shape[1]:
+        raise ValueError("cache must be a row-major field block (unit column "
+                         "stride)")
     for name, t in (("n_cand", n_cand), ("n_pix", n_pix)):
         if t.dtype != torch.int32 or t.numel() != 1:
             raise TypeError(f"{name} must be a one-element int32 tensor")
     if idx is not None and (idx.dtype != torch.int32 or idx.shape != (K,)):
         raise TypeError("idx must be an int32 (K,) tensor or None")
-    tensors = [cand6, px, py, cache, n_cand, n_pix] + \
-        ([] if idx is None else [idx])
+    tensors = [cand6, px, py, n_cand, n_pix] + ([] if idx is None else [idx])
     dev = cand6.device
-    for t in tensors:
+    for t in tensors + [cache]:
         if t.device != dev:
             raise ValueError(f"all inputs must be on {dev}, got {t.device}")
+    for t in tensors:
         if not t.is_contiguous():
             raise ValueError("score_partials inputs must be contiguous")
 
 
 def score_partials(cand6, idx, n_cand, px, py, n_pix, cache, row0: int,
                    rows: int, cols: int, z_occ_max_dis: float,
-                   max_dist_penalty: float, obstacle_min_dist: float):
+                   max_dist_penalty: float, obstacle_min_dist: float,
+                   col0: int = 0):
     """Per-slot CalcScore partials.
 
     cand6: (6, K) rows [ca, sa, sx, sy, mx, my]; idx: (K,) int32
     survivor list or None; n_cand: () int32 live slot count (slots
     [0, n_cand) are scored; with idx, slot b scores candidate idx[b]);
     px, py: (P,) pixel coordinates whose first n_pix () int32 entries
-    are live (a prefix); cache: (block_h, pad_cols) field rows
-    [row0, row0 + block_h) of a rows x cols map.  Returns (sum_d (K,),
-    n_valid (K,) int32, sum_far (K,), n_far (K,) int32); dead slots are
-    zero."""
+    are live (a prefix); cache: (block_h, block_w) field cells
+    [row0, row0 + block_h) x [col0, col0 + block_w) of a rows x cols
+    map, in the working type, bfloat16, or u16/u8 codes (``dequant``),
+    row-major with any row stride.  Returns (sum_d (K,), n_valid (K,)
+    int32, sum_far (K,), n_far (K,) int32); dead slots are zero."""
     _check(cand6, idx, n_cand, px, py, n_pix, cache)
     if cand6.device.type == "cpu":
         return score_partials_reference(
             cand6, idx, n_cand, px, py, n_pix, cache, row0, rows, cols,
-            z_occ_max_dis, max_dist_penalty, obstacle_min_dist)
+            z_occ_max_dis, max_dist_penalty, obstacle_min_dist, col0)
     if cand6.device.type != "cuda":
         raise ValueError(f"no kernel for device {cand6.device}")
     K = cand6.shape[1]
     P = px.shape[0]
     dt = cand6.dtype
     dev = cand6.device
-    block_h, pad_cols = cache.shape
+    block_h, block_w = cache.shape
     pl = plan(K, P, _sm_count(dev), dt)
     sum_d = torch.empty(K, dtype=dt, device=dev)
     sum_far = torch.empty_like(sum_d)
     n_valid = torch.empty(K, dtype=torch.int32, device=dev)
     n_far = torch.empty_like(n_valid)
-    err = _kernel(dt)(
+    err = _kernel(dt, cache.dtype)(
         cand6.data_ptr(), K, None if idx is None else idx.data_ptr(),
         n_cand.data_ptr(), px.data_ptr(), py.data_ptr(), P, n_pix.data_ptr(),
-        cache.data_ptr(), block_h, pad_cols, int(row0), int(rows), int(cols),
-        z_occ_max_dis, max_dist_penalty, obstacle_min_dist,
+        cache.data_ptr(), block_h, block_w, cache.stride(0), int(row0),
+        int(col0), int(rows), int(cols), z_occ_max_dis, max_dist_penalty,
+        obstacle_min_dist, scale(z_occ_max_dis, cache.dtype, dt),
         sum_d.data_ptr(), n_valid.data_ptr(), sum_far.data_ptr(),
         n_far.data_ptr(), pl.grid,
         torch.cuda.current_stream(dev).cuda_stream)
@@ -180,7 +241,7 @@ score_partials.launches = 0
 def score_partials_reference(cand6, idx, n_cand, px, py, n_pix, cache,
                              row0: int, rows: int, cols: int,
                              z_occ_max_dis: float, max_dist_penalty: float,
-                             obstacle_min_dist: float):
+                             obstacle_min_dist: float, col0: int = 0):
     """Plain PyTorch version of score_partials (same contract), the
     torch form of lsdtpu/match/associate.py:_make_part_all.  Reads the
     live counts on the host to slice the work to the live prefix."""
@@ -197,13 +258,13 @@ def score_partials_reference(cand6, idx, n_cand, px, py, n_pix, cache,
     ty = (pxs - sx) * sa + (pys - sy) * ca + my
     fx = geo.c_round(tx)
     fy = geo.c_round(ty)
-    block_h, pad_cols = cache.shape
-    inside = (fx >= 0) & (fx < min(cols, pad_cols)) & \
+    block_h, block_w = cache.shape
+    inside = (fx >= max(col0, 0)) & (fx < min(cols, col0 + block_w)) & \
         (fy >= max(row0, 0)) & (fy < min(rows, row0 + block_h))
-    lin = (torch.where(inside, fy, row0).long() - row0) * pad_cols + \
-        torch.where(inside, fx, 0).long()
-    v = cache.reshape(-1)[lin]
-    at_cap = v >= z_occ_max_dis
+    v, at_cap = dequant(cells(cache,
+                              torch.where(inside, fy, row0).long() - row0,
+                              torch.where(inside, fx, col0).long() - col0),
+                        dt, z_occ_max_dis, cache.dtype)
     contrib = torch.where(at_cap, max_dist_penalty, v)
     far = inside & (at_cap | (v >= obstacle_min_dist))
 

@@ -6,7 +6,8 @@ scan featurization, candidate generation, scoring (the CalcScore kernel
 on the card), fusion, the main loop's state machine and the UKF.  A
 sequence is a Python loop over frames of static-shape tensors sized by
 ShapeConfig; everything stays on the device, and the host syncs only on
-the RDP fixpoint test and the pruning gate's live-count read.
+the RDP fixpoint test, the pruning gate's live-count read and, with
+match.score_window, the windowed scorer's fits decision (one read).
 
 The reference package's execution strategies ``prefeaturize`` and
 ``scan_unroll`` (which give identical outputs there) do not apply to a
@@ -170,6 +171,14 @@ def match_stage(state: TrackState, fs, frame_inputs, ctx: MapContext,
 
     # --- association (trans2FA rounds the lidar pose, :229-230) ---
     lidar_pose = geo.c_round(fs.lidar_pos)
+    scan_radius = None
+    if cfg.match.score_window:
+        # the windowed scorer's coverage bound: the largest live-pixel
+        # distance from the rounded lidar pose (the rigid-transform base)
+        pdx = fs.pixels[:, 0].to(dt) - lidar_pose[0]
+        pdy = fs.pixels[:, 1].to(dt) - lidar_pose[1]
+        scan_radius = torch.where(fs.pixels_mask,
+                                  geo.sqrt(pdx * pdx + pdy * pdy), 0.0).amax()
     if cand is None:
         cand = assoc.generate_candidates(
             fs.lines, fs.lines_mask, ctx.lines, ctx.lines_mask,
@@ -192,7 +201,10 @@ def match_stage(state: TrackState, fs, frame_inputs, ctx: MapContext,
         prune_block=cfg.match.prune_block,
         prune_group=cfg.match.prune_group,
         prune_min_live=cfg.match.prune_min_live,
-        window=cfg.match.score_window)
+        window=cfg.match.score_window,
+        window_center=state.last_pose[:2],
+        scan_radius=scan_radius,
+        window_gate=cfg.match.max_esti_dist)
     # faithful: a perfect (score 0) candidate NaN-poisons the fused pose
     # exactly like the reference's inf weight (myFA.cpp:161)
     pose_w, fused_score, pose_min, min_score, n_acc = assoc.fuse(
@@ -346,7 +358,10 @@ def make_map_context(map_lines, map_cache, resol: float, ori_x: float,
     arrays or tensors, e.g. mapprep.prepare_map's artifacts).
     max_map_lines None sizes the pad to the line count rounded up to a
     multiple of 64 (min 64); padding never passes the gates.
-    cache_dtype: "f32" (the float field at ``dtype``)."""
+    cache_dtype: "f32" (the float field at ``dtype``), "bf16", "u16" or
+    "u8" (compressed fields, match/associate.quantize_cache;
+    z_occ_max_dis is the fixed-point scale and must be the cap the field
+    was built with)."""
     dev = resolve_device(device)
     dt = torch_dtype(dtype)
     map_lines = torch.as_tensor(map_lines)

@@ -210,11 +210,18 @@ def test_fuse_perfect_score_nan_and_floor():
 
 
 def test_unported_options_raise():
+    """Compressed fields and windows are ported (test_torch_cache_dtype.py,
+    test_torch_window.py); an unknown storage mode and tp sharding
+    raise."""
     cache = torch.zeros((4, 4))
-    for dt in ("bf16", "u16", "u8"):
-        with pytest.raises(NotImplementedError):
-            tas.quantize_cache(cache, dt)
+    for dt, want in (("bf16", torch.bfloat16), ("u16", torch.uint16),
+                     ("u8", torch.uint8)):
+        assert tas.quantize_cache(cache, dt).dtype == want
     with pytest.raises(ValueError):
         tas.quantize_cache(cache, "f16")
+    scores = torch.zeros(4)
+    cand = tas.Candidates(*(torch.zeros(4) for _ in range(6)),
+                          torch.zeros((4, 3)), torch.ones(4, dtype=torch.bool),
+                          torch.tensor(4))
     with pytest.raises(NotImplementedError):
-        tas.score_candidates(None, None, None, cache, window=64)
+        tas.fuse(cand, scores, axis_name="tp")

@@ -1,13 +1,17 @@
-"""The CalcScore kernel (lsdtpu_torch/csrc/score.cu) and the NFA
-rect_counts kernel (lsdtpu_torch/csrc/nfa.cu) against their plain
-PyTorch versions on the card, and map prep on the card against the CPU.
-Marked ``cuda``: each test decides inside itself whether a card is
-present and skips where there is none.  Run on the card with
+"""The CalcScore kernel (lsdtpu_torch/csrc/score.cu, on every field
+storage type and on a window), the NFA rect_counts kernel
+(lsdtpu_torch/csrc/nfa.cu) and the FIFO growth and radius-reducer
+kernels (lsdtpu_torch/csrc/grow.cu) against their plain PyTorch versions
+on the card, and map prep on the card against the CPU.  Marked
+``cuda``: each test decides inside itself whether a card is present and
+skips where there is none.  Run on the card with
 ``python -m pytest -m cuda tests/test_torch_*.py``.
 
 Tiers: counts exact; f64 sums rtol 1e-12; f32 sums rtol/atol 2e-6
 (different summation order); repeated launches bitwise equal; f64 map lines card vs CPU within 1e-6 px
-(CUDA's sin/cos/atan2 and reduction order differ from the CPU's)."""
+(CUDA's sin/cos/atan2 and reduction order differ from the CPU's); FIFO
+growth in f64: the same region, queue and count, reg_deg within 1e-12
+(only atan2 differs: both read the same sin/cos tables)."""
 
 import numpy as np
 import pytest
@@ -283,3 +287,196 @@ def test_prepare_map_card_matches_cpu():
     a, b = gpu.lines_info.cpu().numpy(), cpu.lines_info.numpy()
     assert a.shape == b.shape
     np.testing.assert_allclose(a[:, 4:8], b[:, 4:8], rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("storage", ["bf16", "u16", "u8"])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("window", [False, True])
+def test_kernel_storage_types_and_window_match_plain_on_card(storage, dtype,
+                                                             window):
+    """The compressed fields (dequantized in the gather, at-cap on the
+    top code) and a window of the field read in place (row pitch, col0),
+    against the plain version on the same inputs."""
+    _need_card()
+    from lsdtpu_torch.match import associate as tas
+    args = list(_synthetic_args(2048, 4096, 1072, 1954, dtype, idx=True,
+                                seed=7))
+    field = tas.quantize_cache(args[6], storage, 1.0)
+    if window:
+        r0, c0 = 150, 420
+        args[6] = field[r0:r0 + 768, c0:c0 + 768]
+        assert not args[6].is_contiguous()
+        from lsdtpu_torch.ops import score as sc
+        kw = dict(col0=c0)
+        args[7] = r0
+        got = sc.score_partials(*args, **kw)
+        torch.cuda.synchronize()
+        want = sc.score_partials_reference(*args, **kw)
+        for i in (1, 3):
+            assert torch.equal(got[i], want[i])
+        for i in (0, 2):
+            torch.testing.assert_close(got[i], want[i], rtol=_TOL[dtype][0],
+                                       atol=_TOL[dtype][1])
+    else:
+        args[6] = field
+        got = _assert_matches_plain(args, *_TOL[dtype])
+    assert int(got[1].max()) > 0 and int(got[3].max()) > 0
+
+
+def _grow_case(seed, dtype, H=96, W=128):
+    """A coherent level-line field with a random ban, on the card."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float64)
+    part = (xx * 4 // W).astype(int) + 4 * (yy * 3 // H).astype(int)
+    base = rng.uniform(-np.pi, np.pi, 12)
+    deg = base[part] + 0.01 * xx - 0.007 * yy + rng.normal(0, 0.12, (H, W))
+    deg = ((deg + np.pi) % (2 * np.pi) - np.pi).astype(dtype)
+    d = torch.from_numpy(deg).cuda()
+    ban = torch.from_numpy(rng.random((H, W)) < 0.05).cuda()
+    return d, torch.sin(d), torch.cos(d), ban, rng
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_grow_fifo_kernel_matches_plain_on_card(dtype):
+    _need_card()
+    from lsdtpu_torch.ops import grow as og
+    d, s, c, ban, rng = _grow_case(0, dtype)
+    H, W = d.shape
+    queue = og.fifo_queue(H, W, "cuda")
+    largest = 0
+    for k in range(12):
+        sy, sx = int(rng.integers(0, H)), int(rng.integers(0, W))
+        thre = 0.3927 if k % 2 else torch.tensor(0.55, dtype=d.dtype,
+                                                 device="cuda")
+        before = og.grow_fifo.launches
+        g = og.grow_fifo(sy, sx, thre, ban, d, s, c, queue)
+        torch.cuda.synchronize()
+        assert og.grow_fifo.launches == before + 1
+        n = int(g.counts[0])
+        want = og.grow_fifo_reference(
+            sy, sx, thre.cpu() if torch.is_tensor(thre) else thre, ban.cpu(),
+            d.cpu(), s.cpu(), c.cpu(), og.fifo_queue(H, W, "cpu"))
+        assert g.counts.tolist() == want.counts.tolist()
+        assert torch.equal(g.cur.cpu(), want.cur)
+        assert torch.equal(g.qy[:n].cpu(), want.qy[:n])
+        assert torch.equal(g.qx[:n].cpu(), want.qx[:n])
+        tol = 1e-12 if dtype == np.float64 else 1e-5
+        assert abs(float(g.reg_deg) - float(want.reg_deg)) <= tol
+        largest = max(largest, n)
+    assert largest > 100
+
+
+def test_grow_fifo_kernel_repeats_bitwise_and_floods_on_card():
+    _need_card()
+    from lsdtpu_torch.ops import grow as og
+    d = torch.zeros((293, 432), dtype=torch.float64, device="cuda")
+    ban = torch.zeros_like(d, dtype=torch.bool)
+    s, c = torch.sin(d), torch.cos(d)
+    queue = og.fifo_queue(293, 432, "cuda")
+    g = og.grow_fifo(100, 200, 0.4, ban, d, s, c, queue)
+    assert g.counts.tolist() == [293 * 432, 2 * 293 * 432, 2]
+    assert bool(g.cur.all())
+    first = g.qy.clone(), g.qx.clone()
+    d2, s2, c2, ban2, _ = _grow_case(3, np.float64)
+    ref = og.grow_fifo(40, 60, 0.5, ban2, d2, s2, c2)
+    n = int(ref.counts[0])
+    ref = (ref.cur.clone(), ref.reg_deg.clone(), ref.qy[:n].clone(),
+           ref.qx[:n].clone())
+    for _ in range(50):
+        r = og.grow_fifo(40, 60, 0.5, ban2, d2, s2, c2)
+        assert torch.equal(r.cur, ref[0]) and torch.equal(r.reg_deg, ref[1])
+        assert torch.equal(r.qy[:n], ref[2]) and torch.equal(r.qx[:n], ref[3])
+    assert torch.equal(first[0], g.qy) and torch.equal(first[1], g.qx)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_radius_reducer_fifo_kernel_matches_plain_on_card(dtype):
+    """Shrink passes over a grown region's queue, far from the origin
+    (the phantom slot drops a point every pass) and at it (never)."""
+    _need_card()
+    from lsdtpu_torch.ops import grow as og
+    d, s, c, ban, rng = _grow_case(1, dtype)
+    H, W = d.shape
+    for sy, sx in ((70, 90), (0, 0)):
+        ban[sy, sx] = False
+        g = og.grow_fifo(sy, sx, 0.6, ban, d, s, c)
+        n = int(g.counts[0])
+        assert n > 30
+        dev = (g.qy.clone(), g.qx.clone(), g.counts[:1].clone(),
+               g.cur.clone(), g.cur.clone())
+        cpu = tuple(t.cpu() for t in dev)
+        rad = np.dtype(dtype).type(40.0)
+        for _ in range(4):
+            rad = rad * np.dtype(dtype).type(0.75)
+            before = og.radius_reducer_fifo.launches
+            og.radius_reducer_fifo(sx, sy, rad, *dev)
+            torch.cuda.synchronize()
+            assert og.radius_reducer_fifo.launches == before + 1
+            og.radius_reducer_fifo_reference(sx, sy, rad, *cpu)
+            m = int(cpu[2])
+            assert int(dev[2]) == m
+            assert torch.equal(dev[0][:n].cpu(), cpu[0][:n])
+            assert torch.equal(dev[1][:n].cpu(), cpu[1][:n])
+            assert torch.equal(dev[3].cpu(), cpu[3])
+            assert torch.equal(dev[4].cpu(), cpu[4])
+
+
+def test_prepare_map_fifo_card_matches_cpu():
+    """FIFO map prep of a small map on the card and on the CPU in f64:
+    the same lines (endpoints within 1e-9 px) and one grow_fifo launch
+    per growth call."""
+    _need_card()
+    from lsdtpu_torch.mapprep.pipeline import prepare_map
+    from lsdtpu_torch.mapprep.stats import MapPrepStats
+    from lsdtpu_torch.ops import grow as og
+    from test_fuzz_parity import synth_map
+    g = synth_map(1)
+    st_cpu, st_gpu = MapPrepStats(), MapPrepStats()
+    cpu = prepare_map(g, 0.05, growth="fifo", dtype=torch.float64,
+                      device="cpu", stats=st_cpu)
+    before = og.grow_fifo.launches
+    gpu = prepare_map(g, 0.05, growth="fifo", dtype=torch.float64,
+                      device="cuda", stats=st_gpu)
+    assert og.grow_fifo.launches - before == st_gpu.fifo_calls \
+        == st_cpu.fifo_calls
+    assert (st_gpu.pops, st_gpu.passes) == (st_cpu.pops, st_cpu.passes)
+    a, b = gpu.lines_info.cpu().numpy(), cpu.lines_info.numpy()
+    assert a.shape == b.shape
+    np.testing.assert_allclose(a[:, 4:8], b[:, 4:8], rtol=0, atol=1e-9)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_rectangle_fit_card_equals_cpu_bitwise(dtype):
+    """The rectangle fit sums on the device in one fixed order and solves
+    its 2x2 system on host scalars: the card's rectangle is the CPU's bit
+    for bit, at the map-prep field's size."""
+    _need_card()
+    from lsdtpu_torch.mapprep import rect
+    from lsdtpu_torch.mapprep.stats import MapPrepStats
+    rng = np.random.default_rng(5)
+    H, W = 293, 432
+    mag = torch.from_numpy(rng.uniform(0.1, 3.0, (H, W))).to(dtype)
+    yy, xx = np.mgrid[0:H, 0:W]
+    cur = torch.from_numpy((np.abs((yy - 140) - 0.37 * (xx - 200)) < 2.5)
+                           & (np.abs(xx - 200) < 90))
+    seed = torch.tensor(0.35, dtype=dtype)
+    want = rect.rectangle_converter(cur, seed, mag, 0.125, 0.3927,
+                                    MapPrepStats())
+    st = MapPrepStats()
+    got = rect.rectangle_converter(cur.cuda(), seed.cuda(), mag.cuda(), 0.125,
+                                   0.3927, st)
+    assert st.syncs == 2
+    assert {k: float(v) for k, v in got.items()} == \
+        {k: float(v) for k, v in want.items()}
+
+
+def test_latency_probe_on_card():
+    """The chain bound's latencies: positive, and an atan2 slower than a
+    dependent on-chip load."""
+    _need_card()
+    from lsdtpu_torch.ops import grow as og
+    lat = og.latency_probe("cuda", steps=512)
+    assert set(lat) == {"smem_load", "l1_load", "atan2_float64",
+                        "atan2_float32"}
+    assert all(v > 0 for v in lat.values())
+    assert lat["atan2_float64"] > min(lat["smem_load"], lat["l1_load"])

@@ -1,4 +1,4 @@
-"""The launch plans of the port's two CUDA kernels, on the CPU.
+"""The launch plans of the port's CUDA kernels, on the CPU.
 
 CalcScore (csrc/score.cu): ``ops/score.py:plan`` sizes the persistent
 grid from the caps and ``split`` is how the kernel shares the live work
@@ -13,7 +13,11 @@ per-column clipped heights, their inclusive scan over column tiles of
 the block's width, the flat covered index mapped back to (column, row) by
 a binary search - equals ``rect_counts_reference`` on hypothesis-drawn
 rectangles (out of the image, degenerate, non-finite slopes and scalars)
-and on the random rectangles of tests/test_nfa_pallas.py."""
+and on the random rectangles of tests/test_nfa_pallas.py.
+
+FIFO growth (csrc/grow.cu): one block; ``ops/grow.py:clear_split`` is
+how its threads clear the region mask before thread 0 walks the queue:
+every cell exactly once, in 4-byte words and the tail bytes."""
 
 import math
 
@@ -25,6 +29,7 @@ from hypothesis import strategies as st
 
 from lsdtpu_torch import geometry as geo
 from lsdtpu_torch.mapprep import nfa as tnfa
+from lsdtpu_torch.ops import grow as ogrow
 from lsdtpu_torch.ops import nfa as onfa
 from lsdtpu_torch.ops import score as osc
 
@@ -312,3 +317,18 @@ def test_nfa_flat_index_full_height_vertical_line():
                prec=0.125 * math.pi)
     want = _assert_flat_equal(deg, _pack([rec], np.float64), 512)
     assert int(want[0][0]) >= 293
+
+
+# --- FIFO growth -------------------------------------------------------
+
+@pytest.mark.parametrize("cells", [1, 3, 4, 255, 1021, 24 * 32, 293 * 432])
+def test_grow_clear_split_covers_each_cell_once(cells):
+    split = ogrow.clear_split(cells)
+    assert len(split) == ogrow.THREADS
+    assert sorted(c for t in split for c in t) == list(range(cells))
+    # whole words first: a thread's cells below the tail come in aligned
+    # groups of four
+    words = cells // 4 * 4
+    for t in split:
+        body = [c for c in t if c < words]
+        assert all(c % 4 == i % 4 for i, c in enumerate(body))

@@ -137,11 +137,10 @@ def test_default_device_is_the_card():
 def test_unported_options_raise():
     _, tctx = contexts(0)
     fr = frames(0)
-    for kw in (dict(polish_pose=True), dict(score_window=512)):
-        cfg = dataclasses.replace(DEFAULT, match=dataclasses.replace(
-            DEFAULT.match, **kw))
-        with pytest.raises(NotImplementedError):
-            tloop.run_sequence(fr, tctx, cfg, device="cpu")
+    cfg = dataclasses.replace(DEFAULT, match=dataclasses.replace(
+        DEFAULT.match, polish_pose=True))
+    with pytest.raises(NotImplementedError):
+        tloop.run_sequence(fr, tctx, cfg, device="cpu")
     st = tloop.init_state(torch.float64, "cpu")
     with pytest.raises(NotImplementedError):
         tloop.localization_step(st, frame_inputs(fr, 0)[1], tctx,

@@ -196,6 +196,25 @@ def test_radius_reducer_matches_jax():
                                    atol=1e-9, err_msg=key)
 
 
+def test_tree_sum_is_one_fixed_pairwise_order():
+    """The rectangle fit's sums add in one order on every device:
+    zero-padded to a power of two and halved, bit for bit the same as a
+    plain pairwise loop (here on a 7x9 field, padded to 64)."""
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((3, 7, 9)) * 10.0 ** rng.uniform(-8, 8, (3, 7, 9))
+    got = trect._tree_sum(torch.from_numpy(x)).tolist()
+
+    def pairwise(v):
+        v = list(v) + [0.0] * (64 - len(v))
+        while len(v) > 1:
+            h = len(v) // 2
+            v = [a + b for a, b in zip(v[:h], v[h:])]
+        return v[0]
+
+    assert got == [pairwise(row) for row in x.reshape(3, -1).tolist()]
+    assert got != [float(r.sum()) for r in torch.from_numpy(x).reshape(3, -1)]
+
+
 @pytest.mark.parametrize("seed", SEEDS)
 def test_seed_walk_on_same_field_matches_jax(seed):
     field = port_field(synth_map(seed))
@@ -283,9 +302,15 @@ def test_prepare_map_cached(tmp_path, monkeypatch):
 
 
 def test_unported_growth_and_default_device():
+    """FIFO growth runs on the CPU; an unknown growth order raises."""
     g = synth_map(0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tprepare(g, 0.05, growth="fifo", device="cpu")
+    st = MapPrepStats()
+    art = tprepare(g, 0.05, growth="fifo", dtype=torch.float64, device="cpu",
+                   stats=st)
+    assert art.lines_info.shape[0] > 4 and st.fifo_calls >= st.seeds > 0
+    assert st.waves == 0 and st.pops > st.fifo_calls
+    with pytest.raises(ValueError, match="growth"):
+        tprepare(g, 0.05, growth="bfs", device="cpu")
     if torch.cuda.is_available():
         return
     with pytest.raises(RuntimeError, match="cuda"):
@@ -301,21 +326,23 @@ def test_map_artifacts_from_numpy():
     np.testing.assert_array_equal(got.map_cache.numpy(), art.map_cache)
 
 
+@pytest.mark.parametrize("growth", ["wave", "fifo"])
 @pytest.mark.parametrize("seed", [0, 1])
-def test_slice_prepare_map_to_rollout_matches_jax(seed):
+def test_slice_prepare_map_to_rollout_matches_jax(seed, growth):
     """Grid -> the port's prepare_map -> the port's rollout, against the
-    JAX package's seed walk on the same field, its distance field and
-    its rollout."""
+    JAX package's seed walk (the same growth order) on the same field,
+    its distance field and its rollout."""
     ds = synth_dataset(seed)
     p = ds.param
-    art = tprepare(ds.map_value, p.resol, dtype=torch.float64, device="cpu")
+    art = tprepare(ds.map_value, p.resol, growth=growth, dtype=torch.float64,
+                   device="cpu")
     tctx = tloop.make_map_context(art.lines_info, art.map_cache, p.resol,
                                   p.ori_x, p.ori_y, dtype=np.float64,
                                   device="cpu")
     fr = jloop.stack_frames(ds, dtype=np.float64)
     got = {k: np_(v) for k, v in
            tloop.run_sequence(fr, tctx, device="cpu").items()}
-    jlines = jax_lines_on_field(port_field(ds.map_value))
+    jlines = jax_lines_on_field(port_field(ds.map_value), growth=growth)
     assert_lines_close(art.lines_info.numpy(), jlines)
     jctx = jloop.make_map_context(jlines, np.asarray(jcache(
         jnp.asarray(ds.map_value), p.resol, 1.0)), p.resol, p.ori_x, p.ori_y,

@@ -87,18 +87,19 @@ def port_field(grid):
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_seed_walk(shape, max_lines):
+def _jax_seed_walk(shape, max_lines, growth="wave"):
     log_nt = 5 * (math.log10(shape[0]) + math.log10(shape[1])) / 2.0
     return jax.jit(lambda m, d, b, mg: jlsd._seed_walk(
-        m, d, b, mg, log_nt, 0.3, 22.5, 0.7, 1024, max_lines, "wave", "xla",
+        m, d, b, mg, log_nt, 0.3, 22.5, 0.7, 1024, max_lines, growth, "xla",
         jnp.float64))
 
 
-def jax_lines_on_field(field, max_lines=256):
-    """The reference package's seed walk (wave growth, f64) run on a
-    given field (numpy or tensors): its valid linesInfo rows, (n, 10)."""
+def jax_lines_on_field(field, max_lines=256, growth="wave"):
+    """The reference package's seed walk (``growth`` "wave" or "fifo",
+    f64) run on a given field (numpy or tensors): its valid linesInfo
+    rows, (n, 10)."""
     m, d, b, mg = (np_(x) for x in field)
-    ends, n = _jax_seed_walk(m.shape, max_lines)(m, d, b, mg)
+    ends, n = _jax_seed_walk(m.shape, max_lines, growth)(m, d, b, mg)
     n = int(n)
     assert n <= max_lines
     e = np.asarray(ends)[:n]
