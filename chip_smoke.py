@@ -3,12 +3,13 @@
 
     python3 chip_smoke.py              # on a machine with one H100
 
-Drives the port's two paths at the extent of the bundled data1 sequence
+Drives the port's paths at the extent of the bundled data1 sequence
 (a 979x1440 map at 0.025 m/px, 279 frames of 360-ray scans to 13 m) on
 a synthetic multi-room scene made from a seed, since no dataset is
 mounted on the card's machine: the per-frame localization rollout
 (run_sequence) and map prep (prepare_map: occupancy grid -> LSD map
-lines + distance field), then both together.  Phases, each printed on
+lines + distance field), then both together, then the streaming entry
+point (OnlineLocalizer and the ROS adapter).  Phases, each printed on
 its own line; any failure exits non-zero before the last line:
 
   1. device: the card's name, count and power limit (no card: exit 2);
@@ -56,8 +57,24 @@ its own line; any failure exits non-zero before the last line:
      counters, a sample of the f32 launches replayed; then grid -> FIFO
      map prep -> rollout of the 279 frames, 3 repeats, with every kernel's
      launches counted from 0 over that run;
- 10. a JSON line of the kernels, the nvidia-smi name/power line, and the
-     last line {"ok": true, "device": {...}}.
+ 10. the streaming entry point (slice 5), on the same scene:
+     online_f32 - the 279 scans as ROS-shaped LaserScans (INF where a
+     ray hit nothing) through OnlineLocalizer.push_laser_scan (f32,
+     wall-segment lines), per-scan latency to the numpy dict (p50, p99,
+     max) and scans/s, bitwise equal to run_sequence on the same
+     compacted frames, one CalcScore launch per scan, and a checkpoint
+     saved after frame 140 resumed in a fresh session, bitwise equal to
+     the uninterrupted run; online_polish_f64 - 30 scans with
+     match.polish_pose, card vs CPU in f64 (identical decisions, poses
+     within 1e-6 px); online_legacy - LsdRosAdapter(mode="legacy") over
+     fake /map_metadata, /map (map prep on the card: wave, z = 2, f32;
+     NFA launches equal to its count calls, time to value) and 279 /scan
+     messages (legacy poses, latency, position error), then f64 legacy
+     sessions on the card and the CPU on the adapter's artifacts: the
+     same first-minimum pose on every frame;
+ 11. a JSON line of the kernels (with their launches on each path), the
+     nvidia-smi name/power line, and the last line
+     {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -86,7 +103,7 @@ SCENE_SEED = 1
 FRAMES = 279  # data1's sequence length
 REPEATS = 3   # timed f32 rollouts (median reported)
 CODES_FRAMES = 60  # depth of the u16 + window rollout check
-PROFILE_FRAMES = 100  # depth of the profiled f32 rollout
+PROFILE_FRAMES = 40  # depth of the profiled f32 rollout
 PILLARS = 16  # round pillars of the FIFO phases' map (sparse regions)
 FIFO_REPEATS = 3  # timed f32 map preps on the FIFO phases' map
 RTOL = 2e-6   # f32 kernel vs plain: different summation order
@@ -729,6 +746,283 @@ def fifo_kernel_cases(grows, reduces, card, floor_ms, lat, clock):
     return out
 
 
+# --- the streaming entry point (slice 5) -------------------------------
+
+CHECKPOINT_AFTER = 140  # online_f32 saves its session after this frame
+POLISH_FRAMES = 30      # depth of the f64 polish check, card vs CPU
+SCAN_INC = 2.0 * np.pi / 360  # the raycaster's ray step (360 rays)
+
+
+def rmse_m(poses_px, scene, tracked):
+    """Position RMSE (m) of the tracked frames against the true
+    trajectory, through the port's keyframe ATE (every frame a
+    keyframe)."""
+    from lsdtpu_torch.eval.ate import keyframe_ate
+    p = scene.dataset.param
+    n = int(tracked.sum())
+    return keyframe_ate(poses_px[tracked], scene.true_pos[tracked],
+                        np.arange(1, n + 1), p.resol, p.ori_x,
+                        p.ori_y).rmse
+
+
+def ros_scans(ds):
+    """The frames as ROS LaserScan ranges on the raycaster's uniform
+    360-ray grid (angle_min 0, SCAN_INC apart): INF where the ray hit
+    nothing."""
+    out = []
+    for fr in ds.frames:
+        full = np.full(360, np.inf)
+        full[np.rint(fr[:, 1] / SCAN_INC).astype(int)] = fr[:, 0]
+        out.append(full)
+    return out
+
+
+def ros_map_messages(ds):
+    """(/map_metadata, /map) messages of the scene's grid: the int8
+    payload inverts the ROS node's remap (-1 unknown, 0 free, 100
+    occupied; main_on_linux.cpp:108-124)."""
+    import types
+    h, w = ds.map_value.shape
+    p = ds.param
+    grid = np.full(ds.map_value.shape, 100, np.int8)
+    grid[ds.map_value == 0] = -1
+    grid[ds.map_value == 255] = 0
+    ns = types.SimpleNamespace
+    meta = ns(width=w, height=h, resolution=p.resol,
+              origin=ns(position=ns(x=p.ori_x, y=p.ori_y)))
+    return meta, ns(data=grid.reshape(-1))
+
+
+def stream(push, scans, ds, frames, after=None):
+    """Push ``frames`` through ``push(scan, odom)``, timing each push to
+    its numpy dict; ``after(f)`` runs after frame f's push, untimed.
+    Returns (stacked outputs, per-push ms)."""
+    outs, lat = [], []
+    for f in frames:
+        t0 = time.perf_counter()
+        outs.append(push(scans[f], ds.odom[f + 1]))
+        lat.append((time.perf_counter() - t0) * 1e3)
+        if after is not None:
+            after(f)
+    return {k: np.stack([o[k] for o in outs]) for k in outs[0]}, lat
+
+
+def latency_stats(lat):
+    lat = np.asarray(lat)
+    return dict(p50_ms=float(np.percentile(lat, 50)),
+                p99_ms=float(np.percentile(lat, 99)),
+                max_ms=float(lat.max()),
+                scans_per_s=len(lat) / float(lat.sum()) * 1e3)
+
+
+def first_difference(a, b, keys):
+    """The first frame at which two stacked outputs differ in any of
+    ``keys`` (NaN equal to NaN), or None."""
+    for f in range(len(a[keys[0]])):
+        if not all(np.array_equal(a[k][f], b[k][f], equal_nan=True)
+                   for k in keys):
+            return f
+    return None
+
+
+def online_tracking(scene, lines, cache64, cfg, device, smi, kind):
+    """online_f32: the scans through OnlineLocalizer.push_laser_scan on
+    the card, against run_sequence on the same compacted frames, with a
+    checkpoint after CHECKPOINT_AFTER frames resumed in a fresh session.
+    Returns the CalcScore launches of the streamed run."""
+    import tempfile
+    from lsdtpu_torch.ops import score as sc
+    from lsdtpu_torch.runtime import loop
+    from lsdtpu_torch.runtime.online import (OnlineLocalizer,
+                                             laser_scan_to_polar)
+    ds = scene.dataset
+    p = ds.param
+    scans = ros_scans(ds)
+    F = len(scans)
+
+    def session():
+        loc = OnlineLocalizer(cfg, dtype=np.float32, device=device)
+        loc.set_map_artifacts(lines, cache64, p.resol, p.ori_x, p.ori_y)
+        return loc
+
+    def push(loc):
+        return lambda r, odom: loc.push_laser_scan(r, 0.0, SCAN_INC, odom)
+
+    loc = session()
+    stream(push(loc), scans, ds, range(3))           # warm-up
+    loc.reset()
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = f"{tmp}/session.npz"
+
+        def save(f):
+            if f + 1 == CHECKPOINT_AFTER:
+                loc.save(ckpt)
+
+        sc.score_partials.launches = 0
+        got, lat = stream(push(loc), scans, ds, range(F), after=save)
+        launches = sc.score_partials.launches
+        resumed = session()
+        resumed.restore(ckpt)
+        tail, _ = stream(push(resumed), scans, ds,
+                         range(CHECKPOINT_AFTER, F))
+    if launches != F:
+        fail(f"online_f32: {launches} CalcScore launches for {F} scans")
+    fr = loop.stack_frames(ds, dtype=np.float32)
+    for f, r in enumerate(scans):
+        rr, aa = laser_scan_to_polar(r, 0.0, SCAN_INC)
+        fr["ranges"][f, :len(rr)] = rr
+        fr["angles"][f, :len(aa)] = aa
+    fr["odom_prev"][0] = fr["odom_cur"][0]   # the first scan's own anchor
+    want = {k: v.cpu().numpy() for k, v in
+            loop.run_sequence(fr, loc.ctx, cfg, device=device).items()}
+    keys = sorted(want)
+    diff = first_difference(got, want, keys)
+    if diff is not None:
+        fail(f"online_f32: frame {diff} differs from run_sequence "
+             f"(pose {got['pose'][diff]} vs {want['pose'][diff]})")
+    ref = {k: v[CHECKPOINT_AFTER:] for k, v in got.items()}
+    diff = first_difference(tail, ref, keys)
+    if diff is not None:
+        fail(f"online_f32: resumed frame {CHECKPOINT_AFTER + diff} differs "
+             "from the uninterrupted session")
+    tracked = np.isfinite(got["score"]) & ~np.isnan(got["pose"]).any(1)
+    phase("online_f32", device=repr(kind), card=repr(smi), scans=F,
+          run_sequence="bitwise", resume_after=CHECKPOINT_AFTER,
+          resumed_frames=F - CHECKPOINT_AFTER, resume="bitwise",
+          score_launches=launches, tracked=int(tracked.sum()),
+          rmse_m=rmse_m(got["pose"], scene, tracked), **latency_stats(lat),
+          first_scan_ms=lat[0])
+    return launches
+
+
+def online_polish(scene, lines, cache64, cfg, device, smi):
+    """online_polish_f64: POLISH_FRAMES scans with match.polish_pose on
+    the card and the CPU in f64: identical decisions, poses within 1e-6
+    px."""
+    import torch
+    from lsdtpu_torch.ops import score as sc
+    from lsdtpu_torch.runtime.online import OnlineLocalizer
+    ds = scene.dataset
+    p = ds.param
+    scans = ros_scans(ds)
+    cfg_p = dataclasses.replace(cfg, match=dataclasses.replace(
+        cfg.match, polish_pose=True))
+    runs = []
+    for dev in (device, torch.device("cpu")):
+        loc = OnlineLocalizer(cfg_p, dtype=np.float64, device=dev)
+        loc.set_map_artifacts(lines, cache64, p.resol, p.ori_x, p.ori_y)
+        sc.score_partials.launches = 0
+        out, lat = stream(
+            lambda r, odom: loc.push_laser_scan(r, 0.0, SCAN_INC, odom),
+            scans, ds, range(POLISH_FRAMES))
+        runs.append((out, lat, sc.score_partials.launches))
+    (a, lat, launches), (b, _l, _n) = runs
+    same = (np.array_equal(a["n_candidates"], b["n_candidates"])
+            and np.array_equal(np.isfinite(a["score"]),
+                               np.isfinite(b["score"])))
+    ok = ~np.isnan(a["pose"]).any(1) & ~np.isnan(b["pose"]).any(1)
+    dpose = float(np.abs(a["pose"][ok] - b["pose"][ok]).max())
+    if not same or not dpose <= 1e-6:
+        f = first_difference(
+            {k: a[k] for k in ("n_candidates", "pose")},
+            {k: b[k] for k in ("n_candidates", "pose")},
+            ["n_candidates", "pose"])
+        fail(f"online_polish_f64: card and CPU part at frame {f}: "
+             f"{a['pose'][f]} vs {b['pose'][f]} (max pose diff {dpose})")
+    phase("online_polish_f64", card=repr(smi), frames=POLISH_FRAMES,
+          decisions="identical", max_pose_diff_px=dpose,
+          score_launches=launches, tracked=int(np.isfinite(a["score"]).sum()),
+          card_p50_ms=float(np.median(lat)))
+    return launches
+
+
+def online_legacy(scene, cfg, device, smi, kind):
+    """online_legacy: LsdRosAdapter(mode="legacy") on the card over fake
+    /map_metadata, /map and /scan messages (map prep on the card: wave,
+    z = 2, f32), then f64 legacy sessions on the card and the CPU on the
+    adapter's artifacts: the same first-minimum pose on every frame.
+    Returns the NFA launches of the adapter's map prep."""
+    import torch
+    from lsdtpu_torch.ops import nfa as onfa
+    from lsdtpu_torch.ops import score as sc
+    from lsdtpu_torch.runtime.online import OnlineLocalizer
+    from lsdtpu_torch.runtime.ros_node import LsdRosAdapter
+    import types
+    ds = scene.dataset
+    p = ds.param
+    scans = ros_scans(ds)
+    F = len(scans)
+    meta, grid = ros_map_messages(ds)
+    ad = LsdRosAdapter(cfg, mode="legacy", device=device)
+    if ad.on_map(grid) is not None:
+        fail("online_legacy: /map before /map_metadata was not dropped")
+    ad.on_map_metadata(meta)
+    onfa.rect_counts.launches = sc.score_partials.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n_lines, calls = record_rect_counts(lambda: ad.on_map(grid))
+    torch.cuda.synchronize()
+    prep_ms = (time.perf_counter() - t0) * 1e3
+    nfa_launches, n_calls = onfa.rect_counts.launches, len(calls)
+    del calls
+    if nfa_launches != n_calls or nfa_launches == 0:
+        fail(f"online_legacy: {nfa_launches} NFA launches for {n_calls} "
+             "count calls")
+    got, lat = stream(
+        lambda r, _odom: ad.on_scan(types.SimpleNamespace(
+            ranges=r, angle_min=0.0, angle_increment=SCAN_INC)),
+        scans, ds, range(F))
+    if sc.score_partials.launches != 0:
+        fail("online_legacy: the legacy matcher launched CalcScore")
+    fin = np.isfinite(got["score"])
+    if not fin.any():
+        fail("online_legacy: no frame has a finite score")
+    phase("online_legacy", device=repr(kind), card=repr(smi),
+          map_lines=n_lines, map_prep_ms=prep_ms,
+          nfa_launches=nfa_launches, nfa_count_calls=n_calls,
+          cache_cap=float(ad.loc.ctx.cache.max()), scans=F,
+          finite_frames=int(fin.sum()),
+          overflow_frames=int(got["candidate_overflow"].sum()),
+          mean_candidates=float(got["n_candidates"].mean()),
+          rmse_m=rmse_m(got["pose"], scene, fin),
+          **latency_stats(lat), first_scan_ms=lat[0])
+    # f64 card vs CPU on the adapter's artifacts
+    lines = ad.loc.ctx.lines[:n_lines].cpu()
+    cache = ad.loc.ctx.cache.cpu()
+    runs, secs = [], []
+    for dev in (device, torch.device("cpu")):
+        loc = OnlineLocalizer(cfg, mode="legacy", dtype=np.float64,
+                              device=dev)
+        loc.set_map_artifacts(lines, cache, p.resol, p.ori_x, p.ori_y)
+        t0 = time.perf_counter()
+        runs.append(stream(
+            lambda r, _odom: loc.push_laser_scan(r, 0.0, SCAN_INC),
+            scans, ds, range(F))[0])
+        secs.append(round(time.perf_counter() - t0, 2))
+    a, b = runs
+    # the same candidate: the same floored pixel, its heading within
+    # 1e-12 rad (the card's atan is not the CPU's to the ulp)
+    differ = [f for f in range(F)
+              if not (np.array_equal(a["pose"][f, :2], b["pose"][f, :2])
+                      and abs(a["pose"][f, 2] - b["pose"][f, 2]) <= 1e-12)]
+    for f in differ[:5]:
+        phase("online_legacy_f64_difference", frame=f,
+              card_pose=a["pose"][f].tolist(), cpu_pose=b["pose"][f].tolist())
+    if differ:
+        fail(f"online_legacy: f64 first-minimum poses differ card vs CPU on "
+             f"{len(differ)} of {F} frames (first {differ[0]})")
+    fin = np.isfinite(a["score"])
+    rel = float(np.max(np.abs(a["score"][fin] - b["score"][fin])
+                       / np.abs(b["score"][fin]))) if fin.any() else 0.0
+    phase("online_legacy_f64_parity", card=repr(smi), frames=F,
+          first_min_pose="identical", finite_frames=int(fin.sum()),
+          max_heading_diff_rad=float(np.abs(a["pose"][:, 2]
+                                            - b["pose"][:, 2]).max()),
+          n_candidates_equal=bool(np.array_equal(a["n_candidates"],
+                                                 b["n_candidates"])),
+          max_score_rel_diff=rel, card_s=secs[0], cpu_s=secs[1])
+    return nfa_launches
+
 
 def main():
     import torch
@@ -916,14 +1210,12 @@ def main():
     tracked = np.isfinite(res["score"]) & ~np.isnan(res["pose"]).any(1)
     if not tracked.any():
         fail("the f32 rollout tracked no frame")
-    world = res["pose"][:, :2] * resol + np.array([ds.param.ori_x,
-                                                   ds.param.ori_y])
-    err = np.linalg.norm(world[tracked] - scene.true_pos[tracked], axis=1)
     med = float(np.median(times))
     phase("rollout_f32", device=repr(kind), power=repr(smi),
           median_ms=med, min_ms=min(times), max_ms=max(times),
           scans_per_s=F / med * 1e3, frames=F,
-          tracked=int(tracked.sum()), rmse_m=float(np.sqrt(np.mean(err ** 2))),
+          tracked=int(tracked.sum()),
+          rmse_m=rmse_m(res["pose"], scene, tracked),
           launches=launches, launches_per_frame=launches / (F * REPEATS))
 
     # where the time goes: the first PROFILE_FRAMES frames once more under
@@ -1102,9 +1394,6 @@ def main():
     tracked = np.isfinite(res["score"]) & ~np.isnan(res["pose"]).any(1)
     if not tracked.any():
         fail("the end-to-end f32 rollout on LSD map lines tracked no frame")
-    world = res["pose"][:, :2] * resol + np.array([ds.param.ori_x,
-                                                   ds.param.ori_y])
-    err = np.linalg.norm(world[tracked] - scene.true_pos[tracked], axis=1)
     phase("end_to_end_f32", device=repr(kind), power=repr(smi),
           map_prep_s=prep_s, map_lines=int(art.lines_info.shape[0]),
           max_candidates=cfg_e.shapes.max_candidates,
@@ -1113,7 +1402,7 @@ def main():
           candidate_overflow_frames=int(res["candidate_overflow"].sum()),
           rollout_median_ms=float(np.median(times)), min_ms=min(times),
           max_ms=max(times), frames=F, tracked=int(tracked.sum()),
-          rmse_m=float(np.sqrt(np.mean(err ** 2))),
+          rmse_m=rmse_m(res["pose"], scene, tracked),
           nfa_launches=launches_e["rect_counts"],
           score_launches=launches_e["score_partials"])
     # the CalcScore kernel at this path's relock frame: its largest launch
@@ -1218,12 +1507,10 @@ def main():
         return art.lines_info.cpu().numpy()
 
     res = {}
-    for growth in ("wave", "fifo"):
+    for growth in ("wave", "fifo"):     # (wave is warm from phases 6-7)
         if growth == "fifo":
             _l, grows32, reduces32 = record_fifo(
                 lambda: prep_p(MapPrepStats(), "fifo"))
-        else:
-            prep_p(MapPrepStats(), growth)            # warm-up
         times, sts = [], []
         og.grow_fifo.launches = og.radius_reducer_fifo.launches = 0
         onfa.rect_counts.launches = 0
@@ -1325,9 +1612,6 @@ def main():
     tracked = np.isfinite(res_f["score"]) & ~np.isnan(res_f["pose"]).any(1)
     if not tracked.any():
         fail("the end-to-end FIFO rollout tracked no frame")
-    world = res_f["pose"][:, :2] * resol + np.array([ds_p.param.ori_x,
-                                                     ds_p.param.ori_y])
-    err = np.linalg.norm(world[tracked] - scene_p.true_pos[tracked], axis=1)
     phase("end_to_end_fifo_f32", device=repr(kind), power=repr(smi),
           pillars=PILLARS, map_prep_s=prep_s,
           map_lines=int(art.lines_info.shape[0]),
@@ -1335,16 +1619,33 @@ def main():
           candidate_overflow_frames=int(res_f["candidate_overflow"].sum()),
           rollout_median_ms=float(np.median(times)), min_ms=min(times),
           max_ms=max(times), frames=F, tracked=int(tracked.sum()),
-          rmse_m=float(np.sqrt(np.mean(err ** 2))), launches=launches_f,
+          rmse_m=rmse_m(res_f["pose"], scene_p, tracked),
+          launches=launches_f,
           fifo_seconds=round(time.perf_counter() - t_fifo, 2))
 
-    # --- 10. report ------------------------------------------------------
+    # --- 10. the streaming entry point (slice 5) ---------------------------
+    t_online = time.perf_counter()
+    online_launches = online_tracking(scene, lines, cache64, cfg, device,
+                                      smi, kind)
+    polish_launches = online_polish(scene, lines, cache64, cfg, device, smi)
+    legacy_nfa = online_legacy(scene, cfg, device, smi, kind)
+    phase("online", card=repr(smi),
+          seconds=round(time.perf_counter() - t_online, 2))
+
+    # --- 11. report ------------------------------------------------------
     main_case = cases[1]      # relock frame as the main path scores it
     kern = {
         "name": "score_partials", "route": "cuda",
         "source": "lsdtpu_torch/csrc/score.cu",
         "replaces": "lsdtpu/ops/score_pallas.py:54",
         "checked": True, "launches": launches,
+        "launches_by_path": {"rollout_f32": launches,
+                             "end_to_end_f32": launches_e["score_partials"],
+                             "end_to_end_fifo_f32":
+                                 launches_f["score_partials"],
+                             "online_f32": online_launches,
+                             "online_polish_f64": polish_launches,
+                             "online_legacy": 0},
         "max_abs_err": max(c["max_abs_err"] for c in
                            cases + e2e_cases + code_cases),
         "ms": main_case["ms"], "ms_source": main_case["ms_source"],
@@ -1363,6 +1664,9 @@ def main():
         "source": "lsdtpu_torch/csrc/nfa.cu",
         "replaces": "lsdtpu/ops/nfa_pallas.py:87",
         "checked": True, "launches": launches_e["rect_counts"],
+        "launches_by_path": {"end_to_end_f32": launches_e["rect_counts"],
+                             "end_to_end_fifo_f32": launches_f["rect_counts"],
+                             "online_legacy": legacy_nfa},
         "max_abs_err": 0.0, "ms": top["ms"], "ms_source": top["ms_source"],
         "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
         "bound_by": top["bound_by"], "library_ms": None,

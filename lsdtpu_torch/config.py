@@ -102,8 +102,8 @@ class MatchConfig:
     # this many consecutive no-candidate frames on rotated odometry
     # instead of resetting to the (-1,-1) sentinel.
     coast_on_loss: int = 0
-    # sub-pixel Gauss-Newton polish of the fused pose.  Not ported yet:
-    # True raises NotImplementedError.
+    # sub-pixel Gauss-Newton polish of the fused pose (match/polish.py;
+    # float fields only: u16/u8 raise).
     polish_pose: bool = False
     polish_iters: int = 4
     polish_max_px: float = 4.0   # total displacement cap (HMM basin)

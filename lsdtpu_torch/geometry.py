@@ -12,6 +12,7 @@ import math
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 PI = math.pi
 
@@ -30,6 +31,22 @@ def sqrt(x):
     if x.device.type == "cpu":
         return torch.from_numpy(np.asarray(np.sqrt(x.numpy(force=True))))
     return torch.sqrt(x)
+
+
+def tree_sum(rows):
+    """Sums of each row of ``rows`` (k, ...) over all its other axes, in
+    one fixed order on every device: zero-padded to a power of two, then
+    halved by elementwise adds, each rounded once.  torch's own sum adds
+    in a device-specific order; where the card must give the CPU's
+    result bit for bit (a rectangle edge on a pixel centre, a score
+    tie), sums go through this."""
+    x = rows.reshape(rows.shape[0], -1)
+    n = x.shape[1]
+    x = F.pad(x, (0, (1 << (n - 1).bit_length()) - n))
+    while x.shape[1] > 1:
+        h = x.shape[1] // 2
+        x = x[:, :h] + x[:, h:]
+    return x[:, 0]
 
 
 def sind(x):

@@ -6,8 +6,8 @@ Reference: CenterGetter/OrientationGetter/RectangleConverter/Refiner/
 RegionRadiusReducer, LSD/myLSD.cpp:592-880.  A region is a bool mask
 over the downsampled field; its moments, projections and extents are
 masked full-field passes on the device.  The sums add in one fixed
-pairwise order (``_tree_sum``), so the card and the CPU fit the same
-rectangle bit for bit: torch's own sum adds in a device-specific order,
+pairwise order (``geometry.tree_sum``), so the card and the CPU fit the
+same rectangle bit for bit: torch's own sum adds in a device-specific order,
 and an ulp of a rectangle edge lying on a pixel centre moves an NFA
 count.  For the same reason the 2x2 eigen-solve between the moments
 and the projections (its atan2, cos and sin) runs on the host, on the
@@ -27,7 +27,6 @@ import math
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from lsdtpu_torch import geometry as geo
 from lsdtpu_torch.mapprep.stats import MapPrepStats
@@ -57,19 +56,6 @@ def _wrap_pi(d):
     return (t(2 * PI) if w == 0.0 else w) - t(PI)
 
 
-def _tree_sum(rows):
-    """Sums of the (H, W) fields stacked in ``rows`` (k, H, W), in one
-    fixed order on every device: zero-padded to a power of two, then
-    halved by elementwise adds, each rounded once."""
-    x = rows.reshape(rows.shape[0], -1)
-    n = x.shape[1]
-    x = F.pad(x, (0, (1 << (n - 1).bit_length()) - n))
-    while x.shape[1] > 1:
-        h = x.shape[1] // 2
-        x = x[:, :h] + x[:, h:]
-    return x[:, 0]
-
-
 def rectangle_converter(cur, seed_deg, mag, ali_pro: float, deg_thre: float,
                         stats: MapPrepStats) -> dict:
     """cur: (H, W) bool region mask; seed_deg: () running region angle
@@ -78,13 +64,13 @@ def rectangle_converter(cur, seed_deg, mag, ali_pro: float, deg_thre: float,
     Two device -> host reads: the moments, then the extents."""
     yf, xf = _coords(mag)
     w = torch.where(cur, mag, 0.0)
-    ws, swx, swy = _tree_sum(torch.stack([w, w * xf, w * yf]))
+    ws, swx, swy = geo.tree_sum(torch.stack([w, w * xf, w * yf]))
     cen_x = swx / ws
     cen_y = swy / ws
     dxp = xf - cen_x
     dyp = yf - cen_y
     wdx, wdy = w * dxp, w * dyp
-    mom = _tree_sum(torch.stack([wdy * dyp, wdx * dxp, wdx * dyp])) / ws
+    mom = geo.tree_sum(torch.stack([wdy * dyp, wdx * dxp, wdx * dyp])) / ws
     cen_x, cen_y, ixx, iyy, ixy, sdeg = stats.to_host(torch.cat([
         torch.stack([cen_x, cen_y]), mom, seed_deg.reshape(1).to(mag.dtype)]))
     t = type(ixx)
@@ -218,7 +204,7 @@ def refiner(seed_x: int, seed_y: int, cur, n: int, rec, mag, deg_map,
     cen_deg = deg_map[min(max(seed_y, 0), H - 1), min(max(seed_x, 0), W - 1)]
     near = cur & (d_seed < float(rec["wid"]))
     difm = torch.where(near, _wrap_pi(deg_map - cen_deg), 0.0)
-    dif_sum, squ_sum, n_near = _tree_sum(torch.stack([
+    dif_sum, squ_sum, n_near = geo.tree_sum(torch.stack([
         difm, difm * difm, near.to(mag.dtype)]))
     mean = dif_sum / n_near
     var = (squ_sum - 2 * mean * dif_sum) / n_near + mean * mean

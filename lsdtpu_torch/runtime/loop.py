@@ -11,7 +11,8 @@ match.score_window, the windowed scorer's fits decision (one read).
 
 The reference package's execution strategies ``prefeaturize`` and
 ``scan_unroll`` (which give identical outputs there) do not apply to a
-frame loop and are ignored.  ``polish_pose`` and the tp/mp sharding
+frame loop and are ignored.  ``match.polish_pose`` polishes both
+measurement paths after fusion (match/polish.py); the tp/mp sharding
 arguments are not ported yet and raise NotImplementedError.
 
 Faithful-mode quirks (config.faithful):
@@ -34,6 +35,7 @@ from lsdtpu_torch import resolve_device
 from lsdtpu_torch.config import DEFAULT, EngineConfig
 from lsdtpu_torch.filter import ukf as fukf
 from lsdtpu_torch.match import associate as assoc
+from lsdtpu_torch.match import polish
 from lsdtpu_torch.scan.featurize import featurize
 
 
@@ -71,6 +73,11 @@ def torch_dtype(dtype) -> torch.dtype:
     if isinstance(dtype, torch.dtype):
         return dtype
     return torch.from_numpy(np.zeros(0, dtype)).dtype
+
+
+def numpy_dtype(dtype) -> np.dtype:
+    """A numpy dtype from a torch or numpy dtype."""
+    return np.dtype(str(torch_dtype(dtype)).split(".")[1])
 
 
 def init_state(dtype=torch.float32, device="cuda") -> TrackState:
@@ -148,8 +155,6 @@ def match_stage(state: TrackState, fs, frame_inputs, ctx: MapContext,
     pre-generated Candidates for this (state, fs) pair."""
     if tp_axis is not None or mp_axis is not None:
         raise NotImplementedError("tp/mp sharding is not ported yet")
-    if cfg.match.polish_pose:
-        raise NotImplementedError("match.polish_pose is not ported yet")
     ranges, angles, valid, n, odom_prev, odom_cur = frame_inputs
     sh = cfg.shapes
     dt = ranges.dtype
@@ -210,6 +215,18 @@ def match_stage(state: TrackState, fs, frame_inputs, ctx: MapContext,
     pose_w, fused_score, pose_min, min_score, n_acc = assoc.fuse(
         cand, scores, cfg.match.score_accept,
         score_floor=0.0 if cfg.faithful else 1e-6)
+    if cfg.match.polish_pose:
+        # sub-pixel Gauss-Newton polish of both measurement paths
+        # (tracking weighted mean + first-frame argmin) against the
+        # bilinear distance field
+        pose_w, _, _ = polish.polish_pose(
+            pose_w, lidar_pose, fs.pixels, fs.pixels_mask, ctx.cache,
+            rows=ctx.rows, cols=ctx.cols, iters=cfg.match.polish_iters,
+            max_total_px=cfg.match.polish_max_px)
+        pose_min, _, _ = polish.polish_pose(
+            pose_min, lidar_pose, fs.pixels, fs.pixels_mask, ctx.cache,
+            rows=ctx.rows, cols=ctx.cols, iters=cfg.match.polish_iters,
+            max_total_px=cfg.match.polish_max_px)
 
     # --- three-way outcome (myFA.cpp:69-175) ---
     lost = n_acc == 0

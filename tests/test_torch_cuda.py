@@ -2,7 +2,9 @@
 storage type and on a window), the NFA rect_counts kernel
 (lsdtpu_torch/csrc/nfa.cu) and the FIFO growth and radius-reducer
 kernels (lsdtpu_torch/csrc/grow.cu) against their plain PyTorch versions
-on the card, and map prep on the card against the CPU.  Marked
+on the card; map prep, the streaming OnlineLocalizer (tracking and
+legacy), the pose polish and a checkpoint resume on the card against
+the CPU.  Marked
 ``cuda``: each test decides inside itself whether a card is present and
 skips where there is none.  Run on the card with
 ``python -m pytest -m cuda tests/test_torch_*.py``.
@@ -11,7 +13,10 @@ Tiers: counts exact; f64 sums rtol 1e-12; f32 sums rtol/atol 2e-6
 (different summation order); repeated launches bitwise equal; f64 map lines card vs CPU within 1e-6 px
 (CUDA's sin/cos/atan2 and reduction order differ from the CPU's); FIFO
 growth in f64: the same region, queue and count, reg_deg within 1e-12
-(only atan2 differs: both read the same sin/cos tables)."""
+(only atan2 differs: both read the same sin/cos tables); streaming on
+the card bitwise equal to run_sequence there; f64 sessions card vs CPU
+with identical decisions (tracking poses within 1e-6 px, the legacy
+first-minimum pose identical)."""
 
 import numpy as np
 import pytest
@@ -480,3 +485,141 @@ def test_latency_probe_on_card():
                         "atan2_float32"}
     assert all(v > 0 for v in lat.values())
     assert lat["atan2_float64"] > min(lat["smem_load"], lat["l1_load"])
+
+
+# --- the streaming entry point (runtime/online.py), the legacy matcher and
+# the pose polish on the card ----------------------------------------------
+
+def _session(seed, mode, dtype, device, cfg=None):
+    """An OnlineLocalizer on ``device`` over a synthetic scene's oracle
+    artifacts (the z = 2 m field in legacy mode)."""
+    from lsdtpu.oracle import lsd as olsd
+    from lsdtpu_torch.config import DEFAULT
+    from lsdtpu_torch.runtime.online import OnlineLocalizer
+    from torch_parity import scene
+    ds, art = scene(seed)
+    p = ds.param
+    cache = art.map_cache if mode == "tracking" else \
+        olsd.create_map_cache(ds.map_value, p.resol, 2.0)
+    loc = OnlineLocalizer(cfg or DEFAULT, mode=mode, dtype=dtype,
+                          device=device)
+    loc.set_map_artifacts(art.lines_info, cache, p.resol, p.ori_x, p.ori_y)
+    return ds, loc
+
+
+def _stream(loc, ds, frames=None):
+    from torch_parity import INC, ros_scan
+    frames = range(len(ds.frames)) if frames is None else frames
+    outs = [loc.push_laser_scan(ros_scan(ds.frames[f]), 0.0, INC,
+                                ds.odom[f + 1]) for f in frames]
+    return {k: np.stack([o[k] for o in outs]) for k in outs[0]}
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_online_on_card_equals_run_sequence(dtype):
+    """Pushing the ROS-shaped scans one at a time on the card gives what
+    run_sequence gives on the compacted frames, bit for bit, with one
+    CalcScore launch per scan."""
+    _need_card()
+    from lsdtpu_torch.ops import score as sc
+    from lsdtpu_torch.runtime import loop
+    from lsdtpu_torch.runtime.online import laser_scan_to_polar
+    from torch_parity import INC, ros_scan
+    ds, loc = _session(1, "tracking", dtype, "cuda")
+    before = sc.score_partials.launches
+    got = _stream(loc, ds)
+    assert sc.score_partials.launches - before == len(ds.frames)
+    fr = loop.stack_frames(ds, dtype=dtype)
+    for f, frame in enumerate(ds.frames):
+        r, a = laser_scan_to_polar(ros_scan(frame), 0.0, INC)
+        fr["ranges"][f, :len(r)], fr["angles"][f, :len(a)] = r, a
+    fr["odom_prev"][0] = fr["odom_cur"][0]
+    want = loop.run_sequence(fr, loc.ctx, loc.cfg, device="cuda")
+    for k, v in want.items():
+        np.testing.assert_array_equal(got[k], v.cpu().numpy(), err_msg=k)
+
+
+@pytest.mark.parametrize("polish", [False, True])
+def test_online_card_matches_cpu_f64(polish):
+    """Tracking sessions on the card and the CPU in f64, with and
+    without the pose polish: identical decisions, poses within 1e-6 px."""
+    _need_card()
+    import dataclasses
+    from lsdtpu_torch.config import DEFAULT
+    cfg = dataclasses.replace(DEFAULT, match=dataclasses.replace(
+        DEFAULT.match, polish_pose=polish))
+    ds, gpu = _session(0, "tracking", np.float64, "cuda", cfg)
+    _, cpu = _session(0, "tracking", np.float64, "cpu", cfg)
+    a, b = _stream(gpu, ds), _stream(cpu, ds)
+    np.testing.assert_array_equal(a["n_candidates"], b["n_candidates"])
+    np.testing.assert_array_equal(np.isfinite(a["score"]),
+                                  np.isfinite(b["score"]))
+    np.testing.assert_allclose(a["pose"], b["pose"], rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_legacy_card_matches_cpu_f64(seed):
+    """The legacy first minimum on the card is the CPU's on every frame:
+    the same candidate (the same floored pixel; its heading within 1e-12
+    rad, the card's atan ulps) and scores within 1e-12."""
+    _need_card()
+    from lsdtpu_torch.ops import score as sc
+    ds, gpu = _session(seed, "legacy", np.float64, "cuda")
+    _, cpu = _session(seed, "legacy", np.float64, "cpu")
+    before = sc.score_partials.launches
+    a, b = _stream(gpu, ds), _stream(cpu, ds)
+    assert sc.score_partials.launches == before      # no CalcScore
+    np.testing.assert_array_equal(a["pose"][:, :2], b["pose"][:, :2])
+    np.testing.assert_allclose(a["pose"][:, 2], b["pose"][:, 2], rtol=0,
+                               atol=1e-12)
+    np.testing.assert_array_equal(a["n_candidates"], b["n_candidates"])
+    np.testing.assert_allclose(a["score"], b["score"], rtol=1e-12)
+
+
+def test_polish_pose_card_matches_cpu():
+    """polish_pose on the card and the CPU (f64): the same accepted
+    steps after every number of iterations, poses within 1e-12 px."""
+    _need_card()
+    from lsdtpu_torch.match import polish
+    rng = np.random.default_rng(3)
+    H, W = 96, 128
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float64)
+    field = np.minimum(np.minimum(np.abs(xx - 64), np.abs(yy - 48)) * 0.05,
+                       1.0)
+    P = 512
+    pix = np.zeros((P, 2), np.int32)
+    pix[:60, 0] = rng.integers(-20, 25, 60)
+    pix[60:120, 1] = rng.integers(-30, 30, 60)
+    mask = np.zeros(P, bool)
+    mask[:120] = True
+    args = [torch.tensor([66.2, 46.3, 2.5], dtype=torch.float64),
+            torch.zeros(2, dtype=torch.float64), torch.from_numpy(pix),
+            torch.from_numpy(mask), torch.from_numpy(field)]
+    for iters in range(7):
+        a = polish.polish_pose(*(x.cuda() for x in args), iters=iters)
+        b = polish.polish_pose(*args, iters=iters)
+        np.testing.assert_allclose(a[0].cpu().numpy(), b[0].numpy(), rtol=0,
+                                   atol=1e-12, err_msg=f"iters={iters}")
+
+
+def test_checkpoint_resume_on_card(tmp_path):
+    """A session saved on the card resumes on the card bit for bit, and
+    on the CPU within the rollout tier."""
+    _need_card()
+    ds, ref = _session(0, "tracking", np.float64, "cuda")
+    want = _stream(ref, ds)
+    _, a = _session(0, "tracking", np.float64, "cuda")
+    _stream(a, ds, range(4))
+    path = str(tmp_path / "state.npz")
+    a.save(path)
+    F = len(ds.frames)
+    _, b = _session(0, "tracking", np.float64, "cuda")
+    b.restore(path)
+    assert b.state.kalman_x.is_cuda
+    got = _stream(b, ds, range(4, F))
+    for k in got:
+        np.testing.assert_array_equal(got[k], want[k][4:], err_msg=k)
+    _, c = _session(0, "tracking", np.float64, "cpu")
+    c.restore(path)
+    np.testing.assert_allclose(_stream(c, ds, range(4, F))["pose"],
+                               want["pose"][4:], rtol=0, atol=1e-6)

@@ -135,13 +135,15 @@ def test_default_device_is_the_card():
 
 
 def test_unported_options_raise():
+    """tp/mp sharding is not ported and raises; match.polish_pose is
+    ported (tests/test_torch_polish.py) and runs."""
     _, tctx = contexts(0)
     fr = frames(0)
     cfg = dataclasses.replace(DEFAULT, match=dataclasses.replace(
         DEFAULT.match, polish_pose=True))
-    with pytest.raises(NotImplementedError):
-        tloop.run_sequence(fr, tctx, cfg, device="cpu")
+    out = tloop.run_sequence(fr, tctx, cfg, device="cpu")
+    assert torch.isfinite(out["score"]).all()
     st = tloop.init_state(torch.float64, "cpu")
-    with pytest.raises(NotImplementedError):
-        tloop.localization_step(st, frame_inputs(fr, 0)[1], tctx,
-                                tp_axis="tp")
+    for axis in ({"tp_axis": "tp"}, {"mp_axis": "mp"}):
+        with pytest.raises(NotImplementedError):
+            tloop.localization_step(st, frame_inputs(fr, 0)[1], tctx, **axis)

@@ -40,6 +40,7 @@ from lsdtpu.mapprep.pipeline import prepare_map as jprepare
 from lsdtpu.oracle import lsd as olsd
 from lsdtpu.runtime import artifacts as jart
 from lsdtpu.runtime import loop as jloop
+from lsdtpu_torch import geometry as tgeo
 from lsdtpu_torch.mapprep import lsd as tlsd
 from lsdtpu_torch.mapprep import nfa as tnfa
 from lsdtpu_torch.mapprep import rect as trect
@@ -202,7 +203,7 @@ def test_tree_sum_is_one_fixed_pairwise_order():
     plain pairwise loop (here on a 7x9 field, padded to 64)."""
     rng = np.random.default_rng(11)
     x = rng.standard_normal((3, 7, 9)) * 10.0 ** rng.uniform(-8, 8, (3, 7, 9))
-    got = trect._tree_sum(torch.from_numpy(x)).tolist()
+    got = tgeo.tree_sum(torch.from_numpy(x)).tolist()
 
     def pairwise(v):
         v = list(v) + [0.0] * (64 - len(v))

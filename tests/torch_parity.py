@@ -15,13 +15,19 @@ import torch
 from lsdtpu import geometry as jgeo
 from lsdtpu.mapprep import lsd as jlsd
 from lsdtpu.oracle import driver as odrv
+from lsdtpu.config import DEFAULT as JDEFAULT
+from lsdtpu.oracle import lsd as olsd
 from lsdtpu.runtime import loop as jloop
+from lsdtpu.runtime import online as jonline
 from lsdtpu_torch.mapprep.gaussian import gaussian_sampler
 from lsdtpu_torch.mapprep.gradient import gradient_field
+from lsdtpu_torch.config import DEFAULT
 from lsdtpu_torch.runtime import loop as tloop
+from lsdtpu_torch.runtime import online as tonline
 from test_fuzz_parity import synth_dataset
 
 CPU = torch.device("cpu")
+INC = 2.0 * np.pi / 360   # the raycaster's angle step (360 rays)
 
 # the suite runs several worker processes, each beside XLA's own thread
 # pool: one intra-op thread per process keeps the CPU from oversubscribing
@@ -140,3 +146,36 @@ def assert_lines_close(got, want):
     assert got.shape == want.shape
     np.testing.assert_allclose(got[:, 4:8], want[:, 4:8], rtol=0, atol=1e-6)
     np.testing.assert_allclose(got, want, rtol=1e-9, atol=1e-6)
+
+
+def localizers(seed, mode="tracking", dtype=np.float64, cfgs=None):
+    """(JAX, port) localizers of one mode on the same artifacts (the
+    oracle's lines; its field at z = 2 m in legacy mode)."""
+    ds, art = scene(seed)
+    p = ds.param
+    cache = art.map_cache if mode == "tracking" else \
+        olsd.create_map_cache(ds.map_value, p.resol, 2.0)
+    jcfg, tcfg = cfgs or (JDEFAULT, DEFAULT)
+    j = jonline.OnlineLocalizer(jcfg, mode=mode, dtype=dtype)
+    t = tonline.OnlineLocalizer(tcfg, mode=mode, dtype=dtype, device="cpu")
+    for loc in (j, t):
+        loc.set_map_artifacts(art.lines_info, cache, p.resol, p.ori_x,
+                              p.ori_y)
+    return j, t
+
+
+def ros_scan(frame):
+    """A synthetic frame as a ROS LaserScan's ranges on the raycaster's
+    uniform 360-ray grid (angle_min 0), INF where the ray hit nothing."""
+    full = np.full(360, np.inf)
+    full[np.rint(frame[:, 1] / INC).astype(int)] = frame[:, 0]
+    return full
+
+
+def grid_payload(map_value):
+    """A dataset map as a ROS OccupancyGrid's int8 payload, inverting the
+    reference's remap (tests/test_ros_node.py:_grid_msgs)."""
+    grid = np.full(map_value.shape, 100, np.int16)
+    grid[map_value == 0] = 255
+    grid[map_value == 255] = 0
+    return grid.reshape(-1)
