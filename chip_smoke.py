@@ -72,7 +72,25 @@ its own line; any failure exits non-zero before the last line:
      messages (legacy poses, latency, position error), then f64 legacy
      sessions on the card and the CPU on the adapter's artifacts: the
      same first-minimum pose on every frame;
- 11. a JSON line of the kernels (with their launches on each path), the
+ 11. batched rollouts and the serving pool (slice 6), on the same scene
+     and the pillar map: batch_kernel_check - the lane-batched CalcScore
+     launch at 8 lanes (the relock frame beside seven tracking frames,
+     the last lane on a 700x1100 crop padded with the cap) in f32 and f64,
+     pruned and unpruned, and at 16 tracking lanes: against its plain
+     version, each lane bit for bit against a single-lane launch, 50
+     repeats bitwise, device ms against the sum of the single launches,
+     the lanes' summed bound and the floor; batch_f32 - run_batch over 1,
+     4, 16 and 64 lanes of 100 frames (the lanes alternating between the
+     two maps, each from its own frame offset): time to value (median of
+     3), scans/s,
+     one batched CalcScore launch a frame, RDP rounds a frame, the device
+     idle share of the 16-lane batch; f64 lanes against their solo
+     rollouts on the card (identical decisions, poses within 1e-6 px);
+     serving_f32 - a 16-slot SessionPool with 1, 4 and 16 active robots
+     (per-tick latency to numpy, scans/s, one launch a tick), a robot
+     leaving and another taking its slot, and an f64 pool against
+     per-robot OnlineLocalizer sessions on the card;
+ 12. a JSON line of the kernels (with their launches on each path), the
      nvidia-smi name/power line, and the last line
      {"ok": true, "device": {...}}.
 """
@@ -222,6 +240,43 @@ def profiled_ms(name, fn, first, kernel, tries=3):
     return None
 
 
+def lane_work(feats, idx, n, px, py, n_pix, field, row0, col0, rows, cols):
+    """(bytes, pairs, distinct cells) one frame's CalcScore launch needs
+    for this data: its live (candidate, pixel) pairs, each input read
+    once (the live candidates' features, the live pixels, each distinct
+    field cell the pairs touch, the survivor list) and the 4 outputs of
+    every slot written once."""
+    import torch
+    from lsdtpu_torch.match import associate as assoc
+    K = feats.shape[1]
+    n_live = int(n)
+    P = int(n_pix)
+    sel = torch.arange(n_live, device=feats.device) if idx is None \
+        else idx[:n_live].long()
+    ca, sa, sx, sy, mx, my = feats[:, sel][:, :, None]
+    tx = (px[None, :P] - sx) * ca - (py[None, :P] - sy) * sa + mx
+    ty = (px[None, :P] - sx) * sa + (py[None, :P] - sy) * ca + my
+    fx, fy = assoc.geo.c_round(tx), assoc.geo.c_round(ty)
+    bh, bw = field.shape
+    ins = (fx >= max(col0, 0)) & (fx < min(cols, col0 + bw)) & \
+        (fy >= max(row0, 0)) & (fy < min(rows, row0 + bh))
+    cells = int(torch.unique((fy[ins] * cols + fx[ins]).long()).numel())
+    esize = feats.element_size()
+    nbytes = (esize * (6 * n_live + 2 * P)                # inputs read once
+              + field.element_size() * cells
+              + (4 * n_live if idx is not None else 0)    # survivor list
+              + K * (2 * esize + 2 * 4))                  # the 4 outputs
+    return nbytes, n_live * P, cells
+
+
+def bound(nbytes, pairs, dt):
+    """(bound ms, what bounds it): the larger of the bytes over the
+    memory rate and the pairs' operations over the type's peak."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = OPS_PER_PAIR * pairs / PEAK_OPS[str(dt).split(".")[1]] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
 def kernel_case(name, cand, fs, ctx, cfg, coarse, device, reps, card,
                 floor_ms, block=None):
     """Kernel vs plain on one frame's inputs; returns the measurements.
@@ -272,32 +327,14 @@ def kernel_case(name, cand, fs, ctx, cfg, coarse, device, reps, card,
     if not torch.equal(torch.isfinite(s_got), torch.isfinite(s_want)):
         fail(f"{name}: finite pattern of scores differs")
     # work this run's data needs: live pairs, distinct cells touched
-    n_live = int(n)
-    P = int(n_pix)
-    pairs = n_live * P
-    sel = torch.arange(n_live, device=device) if idx is None \
-        else idx[:n_live].long()
-    ca, sa, sx, sy, mx, my = feats[:, sel][:, :, None]
-    tx = (px[None, :P] - sx) * ca - (py[None, :P] - sy) * sa + mx
-    ty = (px[None, :P] - sx) * sa + (py[None, :P] - sy) * ca + my
-    fx, fy = assoc.geo.c_round(tx), assoc.geo.c_round(ty)
+    nbytes, pairs, cells = lane_work(feats, idx, n, px, py, n_pix, field,
+                                     row0, col0, ctx.rows, ctx.cols)
     bh, bw = field.shape
-    ins = (fx >= max(col0, 0)) & (fx < min(ctx.cols, col0 + bw)) & \
-        (fy >= max(row0, 0)) & (fy < min(ctx.rows, row0 + bh))
-    cells = int(torch.unique((fy[ins] * ctx.cols + fx[ins]).long()).numel())
-    esize = feats.element_size()
-    nbytes = (esize * (6 * n_live + 2 * P)                # inputs read once
-              + field.element_size() * cells
-              + (4 * n_live if idx is not None else 0)    # survivor list
-              + K * (2 * esize + 2 * 4))                  # the 4 outputs
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = OPS_PER_PAIR * pairs / PEAK_OPS[str(dt).split(".")[1]] * 1e3
+    bound_ms, bound_by = bound(nbytes, pairs, dt)
     out = dict(name=name, field=str(field.dtype).split(".")[1],
-               window=f"{bh}x{bw}@({row0},{col0})", live_candidates=n_live,
-               live_pixels=P, pairs=pairs, distinct_cells=cells,
-               max_abs_err=err,
-               bound_ms=max(t_bytes, t_ops),
-               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               window=f"{bh}x{bw}@({row0},{col0})", live_candidates=int(n),
+               live_pixels=int(n_pix), pairs=pairs, distinct_cells=cells,
+               max_abs_err=err, bound_ms=bound_ms, bound_by=bound_by,
                check_launches=sc.score_partials.launches - before)
     # device time per launch from the profiler; CUDA events over
     # back-to-back launches also include the host's launch gaps
@@ -1024,6 +1061,366 @@ def online_legacy(scene, cfg, device, smi, kind):
     return nfa_launches
 
 
+# --- batched rollouts and the serving pool (slice 6) ---------------------
+
+BATCH_LANES = 8        # batch_kernel_check: one relocking, seven tracking
+TRACKING_LANES = 16    # batch_kernel_check: sixteen tracking lanes
+CROP = (700, 1100)     # the smaller map of batch_kernel_check's last lane
+BATCH_SIZES = (1, 4, 16, 64)   # batch_f32: lanes
+BATCH_FRAMES = 100     # batch_f32: frames a lane
+BATCH_REPEATS = 3      # batch_f32: timed runs at each B (median reported)
+BATCH_F64_LANES = 4    # batch_f32: f64 lanes against their solo rollouts
+PROFILE_LANES = 16     # batch_f32: the profiled batch (10 frames)
+POOL_CAPACITY = 16     # serving_f32
+POOL_WAVES = (1, 4, 16)        # serving_f32: active sessions
+POOL_TICKS = 25        # serving_f32: timed ticks at each active count
+POOL_F64_TICKS = 20    # serving_f32: f64 pool vs OnlineLocalizer
+
+
+def lane_frame_args(scene, ctx, cfg, device, f, pruned):
+    """One frame's single-lane CalcScore arguments (feats, idx, n, px, py,
+    n_pix) as the main path builds them: frame 0 relocks (no prior pose,
+    the full sweep), a later frame tracks from the true pose."""
+    import torch
+    from lsdtpu_torch.io import synth
+    from lsdtpu_torch.match import associate as assoc
+    from lsdtpu_torch.runtime import loop
+    dt = ctx.lines.dtype
+    m = cfg.match
+    fr = loop.stack_frames(scene.dataset, dtype=loop.numpy_dtype(dt),
+                           max_frames=f + 1)
+    inp = tuple(torch.as_tensor(fr[k][f], device=device)
+                for k in loop._FRAME_KEYS)
+    fs = loop.featurize_stage(inp, ctx, cfg)
+    truth = synth.true_pose_px(scene)
+    last = (loop.init_state(dt, device).last_pose if f == 0 else
+            torch.tensor([truth[f][0], truth[f][1], 0.0], dtype=dt,
+                         device=device))
+    cand = assoc.generate_candidates(
+        fs.lines, fs.lines_mask, ctx.lines, ctx.lines_mask,
+        loop.geo.c_round(fs.lidar_pos), last, cfg.shapes.max_candidates,
+        m.ignore_scan_length, m.scan_to_map_diff, m.max_esti_dist)
+    K = cand.ca.shape[0]
+    px, py, n_pix = assoc.pixel_args(fs.pixels, fs.pixels_mask, dt)
+    if pruned:
+        idx, n = assoc.prune_survivors(
+            cand, fs.pixels, fs.pixels_mask, loop.prepare_coarse(ctx, cfg),
+            ctx.rows, ctx.cols, cfg.map.z_occ_max_dis, m.max_dist_penalty,
+            m.valid_ratio, m.obstacle_tolerance, m.score_accept,
+            m.prune_block, m.prune_group)
+    else:
+        idx, n = None, cand.count.clamp(0, K).to(torch.int32)
+    return cand.feats(), idx, n.reshape(1), px, py, n_pix.reshape(1)
+
+
+def profiled_sum_ms(fn, reps, kernel, tries=3):
+    """Device ms of ``kernel`` per call of fn (every launch of it that fn
+    makes), from the profiler over ``reps`` calls; None when every try
+    missed the kernel."""
+    for _ in range(tries):
+        _w, acts = device_profile(lambda: [fn() for _ in range(reps)])
+        hits = [v for k, v in acts.items() if kernel in k]
+        if hits:
+            return sum(h[1] for h in hits) / reps / 1e3
+    return None
+
+
+def batch_kernel_case(name, scene, lines, cache64, cfg, device, card,
+                      floor_ms, dtype, frames, pruned):
+    """The lane-batched CalcScore launch on the recorded frames of the
+    scene, one lane each (the last lane on a CROP of the map, padded to
+    the canvas with the cap): against its plain version on the card, each
+    lane bit for bit against a single-lane launch on its inputs, 50
+    repeats bitwise, device ms against the sum of the single launches on
+    the same inputs, the summed bound of the lanes and the floor."""
+    import torch
+    from lsdtpu_torch.ops import score as sc
+    from lsdtpu_torch.runtime import batch, loop
+    p = scene.dataset.param
+    crop = cache64[:CROP[0], :CROP[1]]
+    fields = [cache64] * (len(frames) - 1) + [crop]
+    ctx, ctx_crop = (loop.make_map_context(lines, f, p.resol, p.ori_x,
+                                           p.ori_y, dtype=dtype, device=device)
+                     for f in (cache64, crop))
+    lanes = [lane_frame_args(scene, ctx_crop if b == len(frames) - 1 else ctx,
+                             cfg, device, f, pruned)
+             for b, f in enumerate(frames)]
+    canvas = batch.batch_context(
+        [(lines, fl) for fl in fields], [(p.resol, p.ori_x, p.ori_y)]
+        * len(fields), cfg, dtype=dtype, device=device)
+    z, pen = cfg.map.z_occ_max_dis, cfg.match.max_dist_penalty
+    stack = [None if lanes[0][i] is None else
+             torch.stack([ln[i] for ln in lanes]) for i in range(6)]
+    stack[2], stack[5] = stack[2][:, 0], stack[5][:, 0]    # (B,) counts
+    stack = [None if t is None else t.contiguous() for t in stack]
+    bargs = (*stack, canvas.cache, canvas.rows, canvas.cols, z, pen, z)
+    singles = [(*ln, canvas.cache[b], 0, int(canvas.rows[b]),
+                int(canvas.cols[b]), z, pen, z) for b, ln in enumerate(lanes)]
+    before = sc.score_partials_batched.launches
+    got = sc.score_partials_batched(*bargs)
+    torch.cuda.synchronize()
+    want = sc.score_partials_batched_reference(*bargs)
+    for i in (1, 3):
+        if not torch.equal(got[i], want[i]):
+            fail(f"{name}: batched kernel counts differ from the plain "
+                 "version")
+    err = 0.0
+    for i in (0, 2):
+        g, w = got[i].double(), want[i].double()
+        err = max(err, float((g - w).abs().max()))
+        if not torch.allclose(g, w, rtol=RTOL, atol=ATOL):
+            fail(f"{name}: batched kernel sums differ from the plain "
+                 f"version (max abs err {err})")
+    for b, a in enumerate(singles):
+        one = sc.score_partials(*a)
+        if not all(torch.equal(g[b], o) for g, o in zip(got, one)):
+            fail(f"{name}: lane {b} differs from its single-lane launch")
+    work = [lane_work(ln[0], ln[1], ln[2], ln[3], ln[4], ln[5],
+                      canvas.cache[b], 0, 0, int(canvas.rows[b]),
+                      int(canvas.cols[b])) for b, ln in enumerate(lanes)]
+    bound_ms, bound_by = bound(sum(w[0] for w in work),
+                               sum(w[1] for w in work), stack[0].dtype)
+    out = dict(name=name, lanes=len(lanes), dtype=str(stack[0].dtype)
+               .split(".")[1], pruned=pruned,
+               live=[int(ln[2]) for ln in lanes],
+               live_pixels=[int(ln[5]) for ln in lanes],
+               crop=f"{CROP[0]}x{CROP[1]}", max_abs_err=err,
+               pairs=sum(w[1] for w in work), bound_ms=bound_ms,
+               bound_by=bound_by,
+               check_launches=sc.score_partials_batched.launches - before)
+    dev_ms = profiled_ms(name, lambda: sc.score_partials_batched(*bargs),
+                         got, "score_partials_kernel")
+    out["repeats_bitwise"] = 50
+    out["ms"] = dev_ms if dev_ms is not None else time_cuda(
+        lambda: sc.score_partials_batched(*bargs), 200)
+    out["ms_source"] = "cuda events" if dev_ms is None else "profiler"
+    out["single_sum_ms"] = profiled_sum_ms(
+        lambda: [sc.score_partials(*a) for a in singles], 20,
+        "score_partials_kernel")
+    out["plain_ms"] = time_cuda(
+        lambda: sc.score_partials_batched_reference(*bargs), 3)
+    out["floor_ms"] = floor_ms
+    phase("batch_kernel_check", **out, card=card)
+    return out
+
+
+def lane_dataset(ds, offset, frames):
+    """The frames [offset, offset + frames) of a sequence as a dataset."""
+    return dataclasses.replace(ds, frames=ds.frames[offset:offset + frames],
+                               odom=ds.odom[offset:offset + frames + 1])
+
+
+def batch_rollouts(maps, cfg, device, smi, kind):
+    """batch_f32: run_batch over BATCH_SIZES lanes of BATCH_FRAMES frames,
+    the lanes alternating between the two maps, each from its own frame
+    offset, BATCH_REPEATS timed runs at each B; then BATCH_F64_LANES lanes
+    in f64 against their solo run_sequence on the card.  maps: [(scene,
+    lines, field)].  Returns the batched CalcScore launches of the timed
+    f32 runs."""
+    import torch
+    from lsdtpu_torch.ops import score as sc
+    from lsdtpu_torch.runtime import batch, loop
+    from lsdtpu_torch.scan import featurize as fz
+    F = BATCH_FRAMES
+    span = len(maps[0][0].dataset.frames) - F
+
+    def lanes(B, dtype):
+        sel = [maps[b % 2] for b in range(B)]
+        dss = [lane_dataset(m[0].dataset, (37 * b) % span, F)
+               for b, m in enumerate(sel)]
+        fr, ctxs, lens = batch.stack_batch(
+            dss, [(m[1], m[2]) for m in sel], cfg, dtype=dtype,
+            device=device)
+        return dss, {k: torch.as_tensor(v, device=device)
+                     for k, v in fr.items()}, ctxs
+
+    total = 0
+    for B in BATCH_SIZES:
+        _d, fr, ctxs = lanes(B, np.float32)
+        batch.run_batch({k: v[:, :3] for k, v in fr.items()}, ctxs, cfg,
+                        device=device)                          # warm-up
+        sc.score_partials_batched.launches = sc.score_partials.launches = 0
+        fz._rdp_rounds.rounds = 0
+        times = []
+        for _ in range(BATCH_REPEATS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = batch.run_batch(fr, ctxs, cfg, device=device)
+            res = {k: v.cpu().numpy() for k, v in out.items()}  # to value
+            times.append((time.perf_counter() - t0) * 1e3)
+        wall = float(np.median(times))
+        launches = sc.score_partials_batched.launches
+        if launches != F * BATCH_REPEATS or sc.score_partials.launches != 0:
+            fail(f"batch_f32 B={B}: {launches} batched and "
+                 f"{sc.score_partials.launches} single CalcScore launches "
+                 f"for {BATCH_REPEATS} runs of {F} frames")
+        if res["pose"].shape != (B, F, 3):
+            fail(f"batch_f32 B={B}: pose shape {res['pose'].shape}")
+        tracked = np.isfinite(res["score"]) & ~np.isnan(res["pose"]).any(-1)
+        if not tracked.any(axis=1).all():
+            fail(f"batch_f32 B={B}: a lane tracked no frame")
+        total += launches
+        phase("batch_f32", device=repr(kind), power=repr(smi), lanes=B,
+              frames=F, median_ms=wall, min_ms=min(times),
+              max_ms=max(times), scans_per_s=B * F / wall * 1e3,
+              ms_per_frame=wall / F, score_launches=launches,
+              launches_per_frame=launches / (F * BATCH_REPEATS),
+              rdp_rounds_per_frame=fz._rdp_rounds.rounds
+              / (F * BATCH_REPEATS),
+              tracked=int(tracked.sum()), of=B * F)
+        if B == PROFILE_LANES:
+            sub = {k: v[:, :10] for k, v in fr.items()}
+            pwall, acts = device_profile(
+                lambda: batch.run_batch(sub, ctxs, cfg, device=device))
+            busy = sum(v[1] for v in acts.values()) / 1e3
+            phase("batch_f32_profile", card=repr(smi), lanes=B, frames=10,
+                  wall_ms=pwall, device_busy_ms=busy,
+                  device_idle_share=1.0 - busy / pwall,
+                  device_ops_per_frame=sum(v[0] for v in acts.values()) / 10,
+                  score_kernel_ms=sum(v[1] for k, v in acts.items()
+                                      if "score_partials_kernel" in k) / 1e3)
+        del fr, ctxs, out
+    # f64: each lane against its solo rollout on the card
+    dss, fr, ctxs = lanes(BATCH_F64_LANES, np.float64)
+    got = {k: v.cpu().numpy() for k, v in
+           batch.run_batch(fr, ctxs, cfg, device=device).items()}
+    worst = 0.0
+    for b, ds in enumerate(dss):
+        m = maps[b % 2]
+        p = ds.param
+        c1 = loop.make_map_context(m[1], m[2], p.resol, p.ori_x, p.ori_y,
+                                   dtype=np.float64, device=device)
+        solo = {k: v.cpu().numpy() for k, v in loop.run_sequence(
+            loop.stack_frames(ds, dtype=np.float64), c1, cfg,
+            device=device).items()}
+        if not (np.array_equal(got["n_candidates"][b], solo["n_candidates"])
+                and np.array_equal(np.isfinite(got["score"][b]),
+                                   np.isfinite(solo["score"]))):
+            fail(f"batch_f64: lane {b} decides otherwise than its solo "
+                 "rollout")
+        ok = ~np.isnan(solo["pose"]).any(-1)
+        worst = max(worst, float(np.abs(got["pose"][b][ok]
+                                        - solo["pose"][ok]).max()))
+    if not worst <= 1e-6:
+        fail(f"batch_f64: lane poses {worst} px from the solo rollouts")
+    phase("batch_f64_parity", card=repr(smi), lanes=BATCH_F64_LANES,
+          frames=F, decisions="identical", max_pose_diff_px=worst)
+    return total
+
+
+def serving(maps, cfg, device, smi, kind):
+    """serving_f32: a SessionPool(POOL_CAPACITY) on the two maps, robots
+    joining in waves of POOL_WAVES active sessions, each wave timed over
+    POOL_TICKS ticks (per-tick latency to the numpy dicts), then one
+    robot leaves and another takes its slot; then an f64 pool against
+    per-robot OnlineLocalizer sessions on the card.  Returns the batched
+    CalcScore launches of the timed ticks."""
+    import torch
+    from lsdtpu_torch.ops import score as sc
+    from lsdtpu_torch.runtime.online import OnlineLocalizer
+    from lsdtpu_torch.runtime.serving import SessionPool
+    scene = maps[0][0]
+    H, W = scene.dataset.map_value.shape
+    n_ticks = len(POOL_WAVES) * POOL_TICKS + 5
+    span = len(scene.dataset.frames) - n_ticks
+
+    def robot(r):
+        m = maps[r % 2]
+        p = m[0].dataset.param
+        return m[0].dataset, (23 * r) % span, (m[1], m[2], p.resol, p.ori_x,
+                                               p.ori_y)
+
+    def submit(pool, sid, ds, f):
+        fr = ds.frames[f]
+        pool.submit_scan(sid, fr[:, 0], fr[:, 1], ds.odom[f + 1])
+
+    pool = SessionPool(POOL_CAPACITY, (H, W), cfg, dtype=np.float32,
+                       device=device)
+    robots = {}           # sid -> [dataset, next frame]
+    total = 0
+    for active in POOL_WAVES:
+        while len(robots) < active:
+            ds, off, args = robot(len(robots))
+            sid = f"r{len(robots)}"
+            pool.open_session(sid, *args)
+            robots[sid] = [ds, off]
+        sc.score_partials_batched.launches = sc.score_partials.launches = 0
+        lat = []
+        for _ in range(POOL_TICKS):
+            for sid, (ds, f) in robots.items():
+                submit(pool, sid, ds, f)
+                robots[sid][1] += 1
+            t0 = time.perf_counter()
+            res = pool.step()
+            lat.append((time.perf_counter() - t0) * 1e3)
+            if set(res) != set(robots):
+                fail(f"serving_f32: results for {sorted(res)}, expected "
+                     f"{sorted(robots)}")
+        launches = sc.score_partials_batched.launches
+        if launches != POOL_TICKS or sc.score_partials.launches != 0:
+            fail(f"serving_f32: {launches} batched and "
+                 f"{sc.score_partials.launches} single CalcScore launches in "
+                 f"{POOL_TICKS} ticks")
+        total += launches
+        st = latency_stats(lat)
+        st["scans_per_s"] = active * POOL_TICKS / float(np.sum(lat)) * 1e3
+        phase("serving_f32", device=repr(kind), power=repr(smi),
+              capacity=POOL_CAPACITY, active=active, ticks=POOL_TICKS,
+              score_launches=launches, **st)
+    # one robot leaves, another takes its slot and starts from the reset
+    slot = pool._sessions["r3"]
+    pool.close_session("r3")
+    del robots["r3"]
+    ds, off, args = robot(POOL_CAPACITY)
+    pool.open_session("late", *args)
+    robots["late"] = [ds, off]
+    if pool._sessions["late"] != slot or pool.n_active != POOL_CAPACITY:
+        fail("serving_f32: the joining robot did not take the free slot")
+    for _ in range(5):
+        for sid, (ds, f) in robots.items():
+            submit(pool, sid, ds, f)
+            robots[sid][1] += 1
+        res = pool.step()
+    if not np.isfinite(res["late"]["score"]):
+        fail("serving_f32: the joining robot does not track")
+    phase("serving_f32_join", slot=slot, active=pool.n_active,
+          late_score=float(res["late"]["score"]))
+    # f64: the pool against per-robot OnlineLocalizer sessions
+    pool = SessionPool(4, (H, W), cfg, dtype=np.float64, device=device)
+    locs = {}
+    for r in range(2):
+        ds, off, args = robot(r)
+        pool.open_session(f"r{r}", *args)
+        locs[f"r{r}"] = [OnlineLocalizer(cfg, dtype=np.float64,
+                                         device=device), ds, off]
+        locs[f"r{r}"][0].set_map_artifacts(*args)
+    worst = 0.0
+    for t in range(POOL_F64_TICKS):
+        want = {}
+        for sid, (loc, ds, off) in locs.items():
+            submit(pool, sid, ds, off + t)
+            fr = ds.frames[off + t]
+            want[sid] = loc.push_scan(fr[:, 0], fr[:, 1], ds.odom[off + t + 1])
+        got = pool.step()
+        for sid in locs:
+            if got[sid]["n_candidates"] != want[sid]["n_candidates"] or \
+                    np.isfinite(got[sid]["score"]) != \
+                    np.isfinite(want[sid]["score"]):
+                fail(f"serving_f64: {sid} decides otherwise than its "
+                     f"OnlineLocalizer at tick {t}")
+            if not np.isnan(want[sid]["pose"]).any():
+                worst = max(worst, float(np.abs(got[sid]["pose"]
+                                                - want[sid]["pose"]).max()))
+    torch.cuda.synchronize()
+    if not worst <= 1e-6:
+        fail(f"serving_f64: pool poses {worst} px from OnlineLocalizer")
+    phase("serving_f64_parity", card=repr(smi), sessions=len(locs),
+          ticks=POOL_F64_TICKS, decisions="identical",
+          max_pose_diff_px=worst,
+          tier="1e-9 px" if worst <= 1e-9 else "1e-6 px (beyond 1e-9)")
+    return total
+
+
 def main():
     import torch
     # --- 1. device ---------------------------------------------------
@@ -1577,6 +1974,7 @@ def main():
     t0 = time.perf_counter()
     art = prepare_map(grid_p, resol, growth="fifo", dtype=torch.float32,
                       device=device, stats=st)
+    pillar_art = art      # the pillar map of the batch phases
     torch.cuda.synchronize()
     prep_s = time.perf_counter() - t0
     ctx_f = loop.make_map_context(art.lines_info, art.map_cache, resol,
@@ -1632,7 +2030,26 @@ def main():
     phase("online", card=repr(smi),
           seconds=round(time.perf_counter() - t_online, 2))
 
-    # --- 11. report ------------------------------------------------------
+    # --- 11. batched rollouts and the serving pool (slice 6) ---------------
+    t_batch = time.perf_counter()
+    batch_cases = [
+        batch_kernel_case(f"mixed{BATCH_LANES}_{tag}_{path}", scene, lines,
+                          cache64, cfg, device, repr(smi), floor_ms, dt,
+                          range(BATCH_LANES), path == "pruned")
+        for tag, dt in (("f32", np.float32), ("f64", np.float64))
+        for path in ("pruned", "unpruned")]
+    batch_cases.append(batch_kernel_case(
+        f"tracking{TRACKING_LANES}_f32_pruned", scene, lines, cache64, cfg,
+        device, repr(smi), floor_ms, np.float32,
+        range(1, TRACKING_LANES + 1), True))
+    maps = [(scene, lines, cache64),
+            (scene_p, pillar_art.lines_info, pillar_art.map_cache)]
+    batch_launches = batch_rollouts(maps, cfg, device, smi, kind)
+    pool_launches = serving(maps, cfg, device, smi, kind)
+    phase("batch", card=repr(smi),
+          seconds=round(time.perf_counter() - t_batch, 2))
+
+    # --- 12. report ------------------------------------------------------
     main_case = cases[1]      # relock frame as the main path scores it
     kern = {
         "name": "score_partials", "route": "cuda",
@@ -1645,7 +2062,12 @@ def main():
                                  launches_f["score_partials"],
                              "online_f32": online_launches,
                              "online_polish_f64": polish_launches,
-                             "online_legacy": 0},
+                             "online_legacy": 0,
+                             "batch_f32": batch_launches,
+                             "serving_f32": pool_launches},
+        "launches_by_path_note": "batch_f32 and serving_f32 launch the "
+                                 "kernel through score_partials_batched, "
+                                 "one launch for all lanes",
         "max_abs_err": max(c["max_abs_err"] for c in
                            cases + e2e_cases + code_cases),
         "ms": main_case["ms"], "ms_source": main_case["ms_source"],
@@ -1701,7 +2123,27 @@ def main():
                       else "one thread: swap-with-last removal, then the "
                            "phantom-slot drop",
             "cases": [run]})
-    print(json.dumps({"kernels": [kern, nfa_kern] + fifo_kern}), flush=True)
+    bmain = batch_cases[0]    # one relocking lane beside seven tracking
+    batched_kern = {
+        "name": "score_partials_batched", "route": "cuda",
+        "source": "lsdtpu_torch/csrc/score.cu",
+        "replaces": "lsdtpu/ops/score_pallas.py:54",
+        "checked": True, "launches": batch_launches + pool_launches,
+        "launches_by_path": {"batch_f32": batch_launches,
+                             "serving_f32": pool_launches},
+        "max_abs_err": max(c["max_abs_err"] for c in batch_cases),
+        "ms": bmain["ms"], "ms_source": bmain["ms_source"],
+        "plain_ms": bmain["plain_ms"], "bound_ms": bmain["bound_ms"],
+        "bound_by": bmain["bound_by"], "library_ms": None,
+        "single_sum_ms": bmain["single_sum_ms"], "floor_ms": floor_ms,
+        "design": "the CalcScore kernel on a (grid, B) grid: blockIdx.y is "
+                  "the lane, each lane the same persistent x-extent (the "
+                  "resident blocks over B); a lane's slots, arithmetic and "
+                  "summation order are the single-lane launch's",
+        "cases": batch_cases,
+    }
+    print(json.dumps({"kernels": [kern, batched_kern, nfa_kern]
+                      + fifo_kern}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

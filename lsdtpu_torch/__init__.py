@@ -2,10 +2,14 @@
 NVIDIA Hopper card (H100).
 
 A second package beside ``lsdtpu/`` (the JAX reference, which this
-package never imports).  Plain tensor code is PyTorch; the CalcScore
-kernel that scores candidates on the per-frame path is hand-written
-CUDA C++ for ``sm_90a`` (``csrc/score.cu``, bound with ctypes by
-``ops/score.py``).  Every entry point takes an explicit ``device``
+package never imports).  Plain tensor code is PyTorch; the kernels are
+hand-written CUDA C++ for ``sm_90a`` in three sources, each built with
+nvcc and bound with ctypes (``ops/build.py``): ``csrc/score.cu``, the
+CalcScore kernel that scores candidates on the per-frame path, one frame
+or a batch of lanes a launch (``ops/score.py``); ``csrc/nfa.cu``, the
+NFA rectangle count of map prep (``ops/nfa.py``); and ``csrc/grow.cu``,
+the FIFO region growth and radius reducer of map prep
+(``ops/grow.py``).  Every entry point takes an explicit ``device``
 argument that defaults to ``"cuda"``; the CPU is used only when the
 caller passes ``device="cpu"`` (the tests do), and asking for the card
 where there is none raises.

@@ -81,6 +81,22 @@
 // fence and atomic round trips, and cluster barriers that wait for the
 // slowest of 8 blocks, made both slower than one block per slot.
 //
+// Lanes.  One launch scores a batch of B lanes (robots of a serving pool
+// or sequences of a batched rollout), each with its own candidates,
+// survivor list, live counts, pixel cloud, field and true map extent:
+// the grid is (grid, B), blockIdx.y is the lane, and each lane gets the
+// same persistent x-extent (ops/score.py:plan with lanes = B) and runs
+// the loop above on its own inputs.  The single-frame entry is the
+// B = 1 case.  A lane's per-slot arithmetic and summation order are the
+// single-lane launch's, so each lane's partials equal a single-lane
+// launch on that lane's inputs bit for bit.  The work is ragged (one
+// relocking lane of ~325 survivors beside tracking lanes of ~21): here
+// every lane holds 1/B of the resident blocks, so the relocking lane
+// runs on fewer SMs than alone; a persistent grid over the flattened
+// (lane, slot) list would balance it (ROADMAP).  Lane l's field starts
+// lane_cells cells after lane (l - 1)'s, and the index type counts all
+// B x lane_cells cells of the canvas.
+//
 // Numerics: the transform's multiplies and adds are explicit
 // round-to-nearest intrinsics, never contracted into FMAs (the build is
 // -fmad=false too), so the C-rounding boundaries match the plain PyTorch
@@ -94,8 +110,8 @@
 // is no matrix product here, and the 2x2 rotation per pixel must round
 // operation by operation at the C-round boundaries, where TF32 or bf16
 // would move pixels to other cells.  The linear index is int32, or int64
-// when the block has >= 2^31 cells.  Shared memory is static, under 7 KB
-// a block.
+// when the lanes' fields have >= 2^31 cells together.  Shared memory is
+// static, under 7 KB a block.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -162,7 +178,9 @@ score_partials_kernel(const T* __restrict__ cand, int K,
                       const T* __restrict__ px, const T* __restrict__ py,
                       int P, const int32_t* __restrict__ n_pix_live,
                       const S* __restrict__ cache, int block_h, int block_w,
-                      int pitch, int row0, int col0, int rows, int cols, T z,
+                      int pitch, I lane_cells, int row0, int col0, int rows,
+                      int cols, const int32_t* __restrict__ lane_rows,
+                      const int32_t* __restrict__ lane_cols, T z,
                       T penalty, T omd, T scale, T* __restrict__ sum_d,
                       int32_t* __restrict__ n_valid, T* __restrict__ sum_far,
                       int32_t* __restrict__ n_far) {
@@ -171,6 +189,21 @@ score_partials_kernel(const T* __restrict__ cand, int K,
   __shared__ int sh_cnt[kSlots][kWarps];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int grid = gridDim.x;
+  // this block's lane (blockIdx.y): its inputs and outputs
+  const int ln = blockIdx.y;
+  cand += static_cast<size_t>(ln) * 6 * K;
+  if (idx) idx += static_cast<size_t>(ln) * K;
+  n_cand += ln;
+  px += static_cast<size_t>(ln) * P;
+  py += static_cast<size_t>(ln) * P;
+  n_pix_live += ln;
+  cache += static_cast<I>(ln) * lane_cells;
+  sum_d += static_cast<size_t>(ln) * K;
+  n_valid += static_cast<size_t>(ln) * K;
+  sum_far += static_cast<size_t>(ln) * K;
+  n_far += static_cast<size_t>(ln) * K;
+  if (lane_rows) rows = lane_rows[ln];
+  if (lane_cols) cols = lane_cols[ln];
 
   // features of this block's slots blockIdx.x + (k0 + k) grid, k < nk
   // (slots past the live count are read too, and never used)
@@ -323,23 +356,30 @@ template <typename T, typename S>
 cudaError_t launch(const T* cand, int K, const int32_t* idx,
                    const int32_t* n_cand, const T* px, const T* py, int P,
                    const int32_t* n_pix, const S* cache, int block_h,
-                   int block_w, int pitch, int row0, int col0, int rows,
-                   int cols, T z, T penalty, T omd, T scale, T* sum_d,
-                   int32_t* n_valid, T* sum_far, int32_t* n_far, int grid,
-                   void* stream) {
-  if (K <= 0) return cudaSuccess;
-  if (grid <= 0 || block_w > pitch) return cudaErrorInvalidValue;
+                   int block_w, int pitch, long long lane_cells, int row0,
+                   int col0, int rows, int cols, const int32_t* lane_rows,
+                   const int32_t* lane_cols, T z, T penalty, T omd, T scale,
+                   T* sum_d, int32_t* n_valid, T* sum_far, int32_t* n_far,
+                   int lanes, int grid, void* stream) {
+  if (K <= 0 || lanes <= 0) return cudaSuccess;
+  if (grid <= 0 || lanes > 65535 || block_w > pitch ||
+      (lanes > 1 && lane_cells < static_cast<long long>(block_h) * pitch))
+    return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long cells = static_cast<long long>(block_h) * pitch;
+  const dim3 blocks(grid, lanes);
+  // every cell of every lane's field (one lane: the block)
+  const long long cells = lanes > 1
+      ? lanes * lane_cells : static_cast<long long>(block_h) * pitch;
   if (cells >= (1LL << 31)) {
-    score_partials_kernel<T, S, int64_t><<<grid, kThreads, 0, s>>>(
+    score_partials_kernel<T, S, int64_t><<<blocks, kThreads, 0, s>>>(
         cand, K, idx, n_cand, px, py, P, n_pix, cache, block_h, block_w,
-        pitch, row0, col0, rows, cols, z, penalty, omd, scale, sum_d, n_valid,
-        sum_far, n_far);
+        pitch, lane_cells, row0, col0, rows, cols, lane_rows, lane_cols, z,
+        penalty, omd, scale, sum_d, n_valid, sum_far, n_far);
   } else {
-    score_partials_kernel<T, S, int32_t><<<grid, kThreads, 0, s>>>(
+    score_partials_kernel<T, S, int32_t><<<blocks, kThreads, 0, s>>>(
         cand, K, idx, n_cand, px, py, P, n_pix, cache, block_h, block_w,
-        pitch, row0, col0, rows, cols, z, penalty, omd, scale, sum_d, n_valid,
+        pitch, static_cast<int32_t>(lane_cells), row0, col0, rows, cols,
+        lane_rows, lane_cols, z, penalty, omd, scale, sum_d, n_valid,
         sum_far, n_far);
   }
   return cudaGetLastError();
@@ -359,19 +399,23 @@ void lsd_score_plan_constants(int32_t* out) {
 }
 
 // lsd_score_partials_<working type>_<field storage type>: one entry
-// point per instantiation the wrapper binds (ops/score.py:_kernel).
+// point per instantiation the wrapper binds (ops/score.py:_kernel), for
+// one frame (lanes = 1, lane_rows = lane_cols = NULL: rows, cols) and
+// for a batch of lanes (rows and cols of each lane read on the device).
 #define LSD_SCORE_ENTRY(NAME, T, S)                                          \
   cudaError_t NAME(const T* cand, int K, const int32_t* idx,                 \
                    const int32_t* n_cand, const T* px, const T* py, int P,   \
                    const int32_t* n_pix, const S* cache, int block_h,        \
-                   int block_w, int pitch, int row0, int col0, int rows,     \
-                   int cols, T z, T penalty, T omd, T scale, T* sum_d,       \
-                   int32_t* n_valid, T* sum_far, int32_t* n_far, int grid,   \
-                   void* stream) {                                           \
+                   int block_w, int pitch, long long lane_cells, int row0,   \
+                   int col0, int rows, int cols, const int32_t* lane_rows,   \
+                   const int32_t* lane_cols, T z, T penalty, T omd, T scale, \
+                   T* sum_d, int32_t* n_valid, T* sum_far, int32_t* n_far,   \
+                   int lanes, int grid, void* stream) {                      \
     return launch<T, S>(cand, K, idx, n_cand, px, py, P, n_pix, cache,       \
-                        block_h, block_w, pitch, row0, col0, rows, cols, z,  \
-                        penalty, omd, scale, sum_d, n_valid, sum_far, n_far, \
-                        grid, stream);                                       \
+                        block_h, block_w, pitch, lane_cells, row0, col0,     \
+                        rows, cols, lane_rows, lane_cols, z, penalty, omd,   \
+                        scale, sum_d, n_valid, sum_far, n_far, lanes, grid,  \
+                        stream);                                             \
   }
 
 LSD_SCORE_ENTRY(lsd_score_partials_f32_f32, float, float)

@@ -33,20 +33,41 @@ def sqrt(x):
     return torch.sqrt(x)
 
 
-def tree_sum(rows):
-    """Sums of each row of ``rows`` (k, ...) over all its other axes, in
-    one fixed order on every device: zero-padded to a power of two, then
-    halved by elementwise adds, each rounded once.  torch's own sum adds
-    in a device-specific order; where the card must give the CPU's
-    result bit for bit (a rectangle edge on a pixel centre, a score
-    tie), sums go through this."""
-    x = rows.reshape(rows.shape[0], -1)
-    n = x.shape[1]
+def tree_sum(rows, lead: int = 1):
+    """Sums of ``rows`` over all axes after its first ``lead`` ones (for
+    lead = 1: each row of a (k, ...) tensor; for lead = 2: each row of
+    each lane of a (B, k, ...) tensor), in one fixed order on every
+    device and for every row: zero-padded to a power of two, then halved
+    by elementwise adds, each rounded once.  torch's own sum adds in a
+    device-specific order; where the card must give the CPU's result bit
+    for bit (a rectangle edge on a pixel centre, a score tie), sums go
+    through this."""
+    keep = tuple(rows.shape[:lead])
+    x = rows.reshape(keep + (-1,))
+    n = x.shape[-1]
     x = F.pad(x, (0, (1 << (n - 1).bit_length()) - n))
-    while x.shape[1] > 1:
-        h = x.shape[1] // 2
-        x = x[:, :h] + x[:, h:]
-    return x[:, 0]
+    while x.shape[-1] > 1:
+        h = x.shape[-1] // 2
+        x = x[..., :h] + x[..., h:]
+    return x[..., 0]
+
+
+def per_lane(x, trailing: int):
+    """A per-lane (B,) tensor as (B, 1, ..., 1) with ``trailing`` unit
+    axes, to broadcast against (B, ...) tensors; a Python number or a
+    0-d tensor (one lane) passes through."""
+    if torch.is_tensor(x) and x.dim() > 0:
+        return x.reshape(tuple(x.shape) + (1,) * trailing)
+    return x
+
+
+def lane_where(cond, a, b):
+    """torch.where with a per-lane condition ((...) bool: none or (B,))
+    broadcast over the trailing axes of a and b (tensors or numbers):
+    cond selects whole rows of each lane."""
+    nd = max(t.dim() for t in (a, b) if torch.is_tensor(t))
+    return torch.where(cond.reshape(tuple(cond.shape)
+                                    + (1,) * (nd - cond.dim())), a, b)
 
 
 def sind(x):
@@ -107,29 +128,45 @@ def wrap_deg(ang):
 
 
 def masked_compact(values, mask, out_size: int, fill=0):
-    """Stable compaction: rows of ``values`` where ``mask``, in order,
-    into a fixed (out_size, ...) buffer.  One cumsum and one scatter; rows
-    that are masked out or past out_size go to a dump slot that is cut
-    off.  Returns (compacted, out_mask, count): out_mask is a prefix
-    mask and count the raw live total (count > out_size flags
-    overflow)."""
-    m = mask.reshape(-1).to(torch.int64)
-    pos = torch.cumsum(m, 0) - 1
-    count = m.sum()
+    """Stable compaction along the last axis of ``mask``: for each lane
+    (the leading axes of mask, none for a single lane), the entries of
+    ``values`` where ``mask``, in order, into a fixed (..., out_size, ...)
+    buffer.  mask: (*lanes, L); values: (*lanes, L, *features).  One
+    cumsum along the last axis and one scatter into a buffer with one
+    dump slot per lane; entries that are masked out or past out_size go
+    to their lane's dump slot, which is cut off.  Returns (compacted,
+    out_mask, count): out_mask is a prefix mask and count each lane's raw
+    live total (count > out_size flags overflow)."""
+    lanes = tuple(mask.shape[:-1])
+    L = mask.shape[-1]
+    feat = tuple(values.shape[len(lanes) + 1:])
+    nl = 1
+    for d in lanes:
+        nl *= d
+    m = mask.reshape(nl, L).to(torch.int64)
+    pos = torch.cumsum(m, -1) - 1
+    count = m.sum(-1)
     slot = torch.where((m > 0) & (pos < out_size), pos,
                        torch.full_like(pos, out_size))
-    out = torch.full((out_size + 1,) + tuple(values.shape[1:]), fill,
+    slot = slot + (out_size + 1) * torch.arange(
+        nl, device=values.device)[:, None]
+    out = torch.full((nl * (out_size + 1),) + feat, fill,
                      dtype=values.dtype, device=values.device)
-    out[slot] = values
-    out_mask = torch.arange(out_size, device=values.device) < count
-    return out[:out_size], out_mask, count
+    out[slot.reshape(-1)] = values.reshape((nl * L,) + feat)
+    out = out.reshape((nl, out_size + 1) + feat)[:, :out_size]
+    out_mask = torch.arange(out_size, device=values.device) < count[:, None]
+    return (out.reshape(lanes + (out_size,) + feat),
+            out_mask.reshape(lanes + (out_size,)), count.reshape(lanes))
 
 
 def masked_compact_rows(values, mask, out_size: int, fill=0):
-    """masked_compact over a row-structured grid: values (R, C, ...),
-    mask (R, C); the same output as masked_compact of the flattened
-    grid.  (The reference package's chunked trip-count scatter is a TPU
-    execution strategy; one scatter is enough on the card.)"""
-    R, C = mask.shape[:2]
-    return masked_compact(values.reshape((R * C,) + tuple(values.shape[2:])),
-                          mask.reshape(-1), out_size, fill=fill)
+    """masked_compact over a row-structured grid of each lane: values
+    (*lanes, R, C, ...), mask (*lanes, R, C); the same output as
+    masked_compact of the flattened grid.  (The reference package's
+    chunked trip-count scatter is a TPU execution strategy; one scatter
+    is enough on the card.)"""
+    lanes = tuple(mask.shape[:-2])
+    R, C = mask.shape[-2:]
+    feat = tuple(values.shape[len(lanes) + 2:])
+    return masked_compact(values.reshape(lanes + (R * C,) + feat),
+                          mask.reshape(lanes + (R * C,)), out_size, fill=fill)

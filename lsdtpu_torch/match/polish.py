@@ -42,11 +42,13 @@ PI = math.pi
 def _bilinear_with_grad(cache_flat, pad_rows, pad_cols, rows, cols, x, y):
     """Bilinear sample + gradient of the distance field at (x, y).
 
-    Returns (value, d/dx, d/dy, inside).  ``inside`` requires the full
-    2x2 support in the TRUE map extent (rows/cols may be smaller than
-    the padded storage).  The support test compares the floored floats
-    (integer-valued, so the same as the reference package's int32 test
-    on every in-range coordinate); a NaN coordinate is outside."""
+    cache_flat: (..., H * W) flat fields, one per lane; x, y: (..., P);
+    rows, cols: numbers, or (..., 1) tensors per lane.  Returns (value,
+    d/dx, d/dy, inside).  ``inside`` requires the full 2x2 support in the
+    TRUE map extent (rows/cols may be smaller than the padded storage).
+    The support test compares the floored floats (integer-valued, so the
+    same as the reference package's int32 test on every in-range
+    coordinate); a NaN coordinate is outside."""
     x0 = torch.floor(x)
     y0 = torch.floor(y)
     fx = x - x0
@@ -55,10 +57,14 @@ def _bilinear_with_grad(cache_flat, pad_rows, pad_cols, rows, cols, x, y):
     xc = torch.nan_to_num(x0).clamp(0, pad_cols - 2).long()
     yc = torch.nan_to_num(y0).clamp(0, pad_rows - 2).long()
     base = yc * pad_cols + xc
-    v00 = cache_flat[base]
-    v01 = cache_flat[base + 1]              # (x+1, y)
-    v10 = cache_flat[base + pad_cols]       # (x, y+1)
-    v11 = cache_flat[base + pad_cols + 1]
+
+    def at(i):
+        return torch.gather(cache_flat, -1, i)
+
+    v00 = at(base)
+    v01 = at(base + 1)                      # (x+1, y)
+    v10 = at(base + pad_cols)               # (x, y+1)
+    v11 = at(base + pad_cols + 1)
     top = v00 * (1 - fx) + v01 * fx
     bot = v10 * (1 - fx) + v11 * fx
     val = top * (1 - fy) + bot * fy
@@ -68,10 +74,10 @@ def _bilinear_with_grad(cache_flat, pad_rows, pad_cols, rows, cols, x, y):
 
 
 def _solve3(H, g):
-    """Solve H d = g for symmetric 3x3 H via the adjugate; the products
-    add in row order (no device matmul)."""
-    a, b, c = H[0, 0], H[0, 1], H[0, 2]
-    d, e, f = H[1, 1], H[1, 2], H[2, 2]
+    """Solve H d = g for symmetric (..., 3, 3) H via the adjugate; the
+    products add in row order (no device matmul)."""
+    a, b, c = H[..., 0, 0], H[..., 0, 1], H[..., 0, 2]
+    d, e, f = H[..., 1, 1], H[..., 1, 2], H[..., 2, 2]
     A = d * f - e * e
     B = c * e - b * f
     C = b * e - c * d
@@ -81,9 +87,11 @@ def _solve3(H, g):
     D = a * f - c * c
     E = b * c - a * e
     F = a * d - b * b
-    Hin = torch.stack([torch.stack([A, B, C]), torch.stack([B, D, E]),
-                       torch.stack([C, E, F])]) * inv_det
-    return Hin[:, 0] * g[0] + Hin[:, 1] * g[1] + Hin[:, 2] * g[2]
+    Hin = torch.stack([torch.stack([A, B, C], -1), torch.stack([B, D, E], -1),
+                       torch.stack([C, E, F], -1)], -2) * inv_det[..., None,
+                                                                  None]
+    return Hin[..., :, 0] * g[..., 0, None] + Hin[..., :, 1] * \
+        g[..., 1, None] + Hin[..., :, 2] * g[..., 2, None]
 
 
 def polish_pose(pose, lidar_pose, pixels, pixels_mask, cache,
@@ -97,7 +105,9 @@ def polish_pose(pose, lidar_pose, pixels, pixels_mask, cache,
     measurement); lidar_pose: (2,) scan-local lidar position; pixels:
     (P, 2) scan-local pixel coords with (P,) mask; cache: (H, W) float
     distance field in meters (bf16 polishes in the pose's dtype on the
-    rounded values).
+    rounded values).  Leading lane axes ``...`` polish each lane on its
+    own: pose (B, 3), lidar_pose (B, 2), pixels (B, P, 2), cache the
+    (B, H, W) canvas, rows/cols (B,) true map extents.
 
     The GN step descends the sum of squared field distances; a step is
     accepted only if it lowers the CalcScore-style penalized mean
@@ -116,64 +126,70 @@ def polish_pose(pose, lidar_pose, pixels, pixels_mask, cache,
             "polish_pose needs a float distance field; integer fixed-point "
             "caches (match.cache_dtype='u16'/'u8') carry no scale here - "
             "use f32 or bf16 with the polish")
-    pad_rows, pad_cols = cache.shape
-    rows = pad_rows if rows is None else rows
-    cols = pad_cols if cols is None else cols
+    lanes = tuple(pose.shape[:-1])
+    pad_rows, pad_cols = cache.shape[-2:]
+    rows = pad_rows if rows is None else geo.per_lane(rows, 1)
+    cols = pad_cols if cols is None else geo.per_lane(cols, 1)
     dt = pose.dtype
     dev = pose.device
-    cache_flat = cache.reshape(-1).to(dt)
-    dxp = pixels[:, 0].to(dt) - lidar_pose[0]
-    dyp = pixels[:, 1].to(dt) - lidar_pose[1]
+    cache_flat = cache.reshape(lanes + (-1,)).to(dt)
+    dxp = pixels[..., 0].to(dt) - lidar_pose[..., 0, None]
+    dyp = pixels[..., 1].to(dt) - lidar_pose[..., 1, None]
     rad = torch.tensor(PI / 180.0, dtype=dt, device=dev)
-    n_masked = pixels_mask.sum().to(dt).clamp(min=1.0)
+    n_masked = pixels_mask.sum(-1).to(dt).clamp(min=1.0)
 
     def cost_and_normal(p):
-        th = p[2] * rad
+        th = p[..., 2, None] * rad
         c = torch.cos(th)
         s = torch.sin(th)
-        tx = c * dxp - s * dyp + p[0]
-        ty = s * dxp + c * dyp + p[1]
+        tx = c * dxp - s * dyp + p[..., 0, None]
+        ty = s * dxp + c * dyp + p[..., 1, None]
         v, gx, gy, inside = _bilinear_with_grad(
             cache_flat, pad_rows, pad_cols, rows, cols, tx, ty)
         w = (inside & pixels_mask).to(dt)
         # d p'/d theta (radians)
         jth = gx * (-s * dxp - c * dyp) + gy * (c * dxp - s * dyp)
-        J = torch.stack([gx, gy, jth]) * w                      # (3, P)
+        J = torch.stack([gx, gy, jth], -2) * w[..., None, :]    # (..., 3, P)
         r = v * w
         sums = geo.tree_sum(torch.cat([
-            torch.stack([v * w, w]), (J[:, None, :] * J[None, :, :])
-            .reshape(9, -1), J * r]))
-        n = sums[1]
+            torch.stack([v * w, w], -2),
+            (J[..., :, None, :] * J[..., None, :, :])
+            .reshape(lanes + (9, -1)), J * r[..., None, :]], -2),
+            lead=len(lanes) + 1)
+        n = sums[..., 1]
         # CalcScore-style penalized mean: off-field pixels cost the cap
         # penalty so a step can't "improve" by shoving pixels off-map
-        cost = (sums[0] + off_field_penalty * (n_masked - n)) / n_masked
-        return cost, sums[2:11].reshape(3, 3), sums[11:14], n
+        cost = (sums[..., 0] + off_field_penalty * (n_masked - n)) / n_masked
+        return (cost, sums[..., 2:11].reshape(lanes + (3, 3)),
+                sums[..., 11:14], n)
 
     cost0, H, g, n0 = cost_and_normal(pose)
-    ok = (n0 > 0) & torch.isfinite(pose).all()
-    best_pose = torch.where(ok, pose, torch.zeros_like(pose))
+    ok = (n0 > 0) & torch.isfinite(pose).all(-1)
+    best_pose = geo.lane_where(ok, pose, torch.zeros_like(pose))
     best_cost = torch.where(ok, cost0, torch.inf)
     eye = torch.eye(3, dtype=dt, device=dev)
     lo, hi = -max_step_deg * rad, max_step_deg * rad
     for _ in range(iters):
         # H/g belong to best_pose, so each iteration evaluates the field
         # exactly once (at the trial pose)
-        lam = damping * (H[0, 0] + H[1, 1] + H[2, 2]) / 3.0 + 1e-12
-        delta = -_solve3(H + lam * eye, g)
+        lam = damping * (H[..., 0, 0] + H[..., 1, 1] + H[..., 2, 2]) / 3.0 \
+            + 1e-12
+        delta = -_solve3(H + lam[..., None, None] * eye, g)
         # trust region: clip translation and rotation per iteration
-        tn = geo.sqrt(delta[0] ** 2 + delta[1] ** 2)
+        tn = geo.sqrt(delta[..., 0] ** 2 + delta[..., 1] ** 2)
         tscale = torch.clamp(max_step_px / tn.clamp(min=1e-12), max=1.0)
-        dth = torch.minimum(torch.maximum(delta[2], lo), hi)
+        dth = torch.minimum(torch.maximum(delta[..., 2], lo), hi)
         cand = best_pose + torch.stack(
-            [delta[0] * tscale, delta[1] * tscale, dth / rad])
+            [delta[..., 0] * tscale, delta[..., 1] * tscale, dth / rad], -1)
         # total displacement guard (stay inside the HMM basin)
-        disp = geo.sqrt((cand[0] - pose[0]) ** 2 + (cand[1] - pose[1]) ** 2)
+        disp = geo.sqrt((cand[..., 0] - pose[..., 0]) ** 2
+                        + (cand[..., 1] - pose[..., 1]) ** 2)
         new_cost, Hn, gn, new_n = cost_and_normal(cand)
         accept = (new_cost < best_cost) & (disp <= max_total_px) & \
-            (new_n > 0) & torch.isfinite(cand).all()
-        best_pose = torch.where(accept, cand, best_pose)
+            (new_n > 0) & torch.isfinite(cand).all(-1)
+        best_pose = geo.lane_where(accept, cand, best_pose)
         best_cost = torch.where(accept, new_cost, best_cost)
-        H = torch.where(accept, Hn, H)
-        g = torch.where(accept, gn, g)
-    return (torch.where(ok, best_pose, pose), cost0,
+        H = geo.lane_where(accept, Hn, H)
+        g = geo.lane_where(accept, gn, g)
+    return (geo.lane_where(ok, best_pose, pose), cost0,
             torch.where(ok, best_cost, cost0))

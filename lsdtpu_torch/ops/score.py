@@ -24,6 +24,17 @@ blocks its launch bounds keep resident, fixed from the caps, never from
 the live counts); block b scores the live slots b, b + grid, ..., each
 over the whole live pixel prefix, which its threads hold in registers
 (``split``: the same arithmetic as csrc/score.cu).
+
+``score_partials_batched`` scores a batch of B lanes (the robots of a
+serving pool, the sequences of a batched rollout) in one launch of the
+same kernel, with a grid of (grid, B): each lane its own candidates,
+survivor list, counts, pixels, field on a common (B, H, W) canvas and
+true map extent, and the same per-lane x-extent (``plan`` with
+``lanes``; ``split_lanes`` and ``zero_split`` are the lane
+decomposition).  It counts its launches in
+``score_partials_batched.launches``; for CPU tensors, and only then, it
+calls ``score_partials_batched_reference``.  A lane's partials equal a
+single-lane launch on that lane's inputs bit for bit.
 """
 
 from __future__ import annotations
@@ -62,14 +73,17 @@ class LaunchPlan(NamedTuple):
     rounds: int           # rounds of HELD pixels at the cap P
 
 
-def plan(K: int, P: int, n_sm: int, dtype) -> LaunchPlan:
+def plan(K: int, P: int, n_sm: int, dtype, lanes: int = 1) -> LaunchPlan:
     """The launch of a (K, P) call on a card with ``n_sm`` SMs: no more
-    blocks than stay resident at once, and no more than the K slots."""
+    blocks than stay resident at once, and no more than the K slots.
+    With ``lanes`` > 1, ``grid`` is each lane's x-extent: the lanes
+    share the resident blocks evenly (at least one block a lane)."""
     if P >= MAX_PIXELS:
         raise ValueError(f"score_partials takes fewer than {MAX_PIXELS} "
                          f"pixel slots, got {P}")
     bps = RESIDENT[dtype]
-    return LaunchPlan(max(1, min(n_sm * bps, K)), bps, max(1, -(-P // HELD)))
+    return LaunchPlan(max(1, min(n_sm * bps // lanes, K)), bps,
+                      max(1, -(-P // HELD)))
 
 
 def split(grid: int, n_live: int, n_pix: int):
@@ -82,6 +96,20 @@ def split(grid: int, n_live: int, n_pix: int):
                for u in range(PIX) if q0 + t + THREADS * u < n_pix]
               for t in range(THREADS)]
     return slots, pixels
+
+
+def split_lanes(grid: int, n_live, n_pix):
+    """``split`` of every lane of a batched launch (the grid's y axis):
+    lane l's blocks take its live slots and pixels on their own."""
+    return [split(grid, int(n), int(p)) for n, p in zip(n_live, n_pix)]
+
+
+def zero_split(grid: int, n_live: int, K: int):
+    """The dead slots [n_live, K) of one lane as its blocks zero them:
+    for each block and thread, the slots n_live + block * THREADS +
+    thread + k * grid * THREADS below K."""
+    return [[list(range(n_live + b * THREADS + t, K, grid * THREADS))
+             for t in range(THREADS)] for b in range(grid)]
 
 
 def scale(z_occ_max_dis: float, storage, dtype) -> float:
@@ -119,6 +147,20 @@ def dequant(vals, dt, z_occ_max_dis: float, storage=None):
     return v, v >= z_occ_max_dis
 
 
+def gather_cells(flat, index):
+    """``cells`` of a flat field (..., L) at an index tensor whose
+    leading axes are the field's (one field per lane): flat[..., index]
+    lane by lane, with index's shape."""
+    lanes = tuple(flat.shape[:-1])
+    i = index.reshape(lanes + (-1,))
+    if flat.dtype == torch.uint16:
+        out = torch.gather(flat.view(torch.int16), -1, i).to(torch.int32) \
+            & U16_MAX
+    else:
+        out = torch.gather(flat, -1, i)
+    return out.reshape(index.shape)
+
+
 def _kernel(dtype, storage):
     """The ctypes launcher for ``dtype`` over a ``storage`` field (builds
     csrc/score.cu once)."""
@@ -138,8 +180,9 @@ def _kernel(dtype, storage):
                           f"{_SUFFIX[storage]}")
         real = ctypes.c_float if dtype == torch.float32 else ctypes.c_double
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, i, p, p, p, p, i, p, p, i, i, i, i, i, i, i,
-                       real, real, real, real, p, p, p, p, i, p]
+        fn.argtypes = [p, i, p, p, p, p, i, p, p, i, i, i, ctypes.c_longlong,
+                       i, i, i, i, p, p, real, real, real, real, p, p, p, p,
+                       i, i, p]
         fn.restype = ctypes.c_int
         _FN[key] = fn
     return _FN[key]
@@ -222,11 +265,12 @@ def score_partials(cand6, idx, n_cand, px, py, n_pix, cache, row0: int,
     err = _kernel(dt, cache.dtype)(
         cand6.data_ptr(), K, None if idx is None else idx.data_ptr(),
         n_cand.data_ptr(), px.data_ptr(), py.data_ptr(), P, n_pix.data_ptr(),
-        cache.data_ptr(), block_h, block_w, cache.stride(0), int(row0),
-        int(col0), int(rows), int(cols), z_occ_max_dis, max_dist_penalty,
+        cache.data_ptr(), block_h, block_w, cache.stride(0),
+        block_h * cache.stride(0), int(row0), int(col0), int(rows),
+        int(cols), None, None, z_occ_max_dis, max_dist_penalty,
         obstacle_min_dist, scale(z_occ_max_dis, cache.dtype, dt),
         sum_d.data_ptr(), n_valid.data_ptr(), sum_far.data_ptr(),
-        n_far.data_ptr(), pl.grid,
+        n_far.data_ptr(), 1, pl.grid,
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"score_partials kernel launch failed: CUDA "
@@ -277,3 +321,102 @@ def score_partials_reference(cand6, idx, n_cand, px, py, n_pix, cache,
             pad(inside.sum(1).to(torch.int32)),
             pad(torch.where(far, contrib, 0.0).sum(1)),
             pad(far.sum(1).to(torch.int32)))
+
+
+def _check_batched(cand6, idx, n_cand, px, py, n_pix, cache, rows, cols):
+    dt = cand6.dtype
+    if dt not in (torch.float32, torch.float64):
+        raise TypeError(f"score_partials_batched takes float32/float64, "
+                        f"got {dt}")
+    if cand6.dim() != 3 or cand6.shape[1] != 6:
+        raise ValueError(f"cand6 must be (B, 6, K), got {tuple(cand6.shape)}")
+    B, _six, K = cand6.shape
+    if px.dim() != 2 or px.shape[0] != B or px.shape != py.shape:
+        raise ValueError("px, py must be equal (B, P) tensors")
+    if cache.dim() != 3 or cache.shape[0] != B:
+        raise ValueError("cache must be the (B, H, W) canvas of the lanes")
+    for name, t in (("px", px), ("py", py)):
+        if t.dtype != dt:
+            raise TypeError(f"{name} is {t.dtype}, cand6 is {dt}")
+    if cache.dtype not in STORAGE[dt]:
+        raise TypeError(f"a {cache.dtype} field with {dt} scoring: the "
+                        f"kernel takes {STORAGE[dt]}")
+    for name, t in (("n_cand", n_cand), ("n_pix", n_pix), ("rows", rows),
+                    ("cols", cols)):
+        if t.dtype != torch.int32 or t.shape != (B,):
+            raise TypeError(f"{name} must be a (B,) int32 tensor")
+    if idx is not None and (idx.dtype != torch.int32 or idx.shape != (B, K)):
+        raise TypeError("idx must be an int32 (B, K) tensor or None")
+    tensors = [cand6, px, py, n_cand, n_pix, cache, rows, cols] + (
+        [] if idx is None else [idx])
+    dev = cand6.device
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"all inputs must be on {dev}, got {t.device}")
+        if not t.is_contiguous():
+            raise ValueError("score_partials_batched inputs must be "
+                             "contiguous")
+
+
+def score_partials_batched(cand6, idx, n_cand, px, py, n_pix, cache, rows,
+                           cols, z_occ_max_dis: float,
+                           max_dist_penalty: float,
+                           obstacle_min_dist: float):
+    """Per-slot CalcScore partials of B lanes in one launch.
+
+    cand6: (B, 6, K); idx: (B, K) int32 survivor lists or None; n_cand,
+    n_pix: (B,) int32 live counts, read on the device; px, py: (B, P);
+    cache: the (B, H, W) canvas, each lane's field in its top-left
+    rows[l] x cols[l] cells (any storage type score_partials takes);
+    rows, cols: (B,) int32 true map extents, read on the device.
+    Returns (sum_d, n_valid, sum_far, n_far), each (B, K); dead slots are
+    zero, lane by lane."""
+    _check_batched(cand6, idx, n_cand, px, py, n_pix, cache, rows, cols)
+    if cand6.device.type == "cpu":
+        return score_partials_batched_reference(
+            cand6, idx, n_cand, px, py, n_pix, cache, rows, cols,
+            z_occ_max_dis, max_dist_penalty, obstacle_min_dist)
+    if cand6.device.type != "cuda":
+        raise ValueError(f"no kernel for device {cand6.device}")
+    B, _six, K = cand6.shape
+    P = px.shape[1]
+    H, W = cache.shape[1:]
+    dt = cand6.dtype
+    dev = cand6.device
+    pl = plan(K, P, _sm_count(dev), dt, lanes=B)
+    sum_d = torch.empty((B, K), dtype=dt, device=dev)
+    sum_far = torch.empty_like(sum_d)
+    n_valid = torch.empty((B, K), dtype=torch.int32, device=dev)
+    n_far = torch.empty_like(n_valid)
+    err = _kernel(dt, cache.dtype)(
+        cand6.data_ptr(), K, None if idx is None else idx.data_ptr(),
+        n_cand.data_ptr(), px.data_ptr(), py.data_ptr(), P, n_pix.data_ptr(),
+        cache.data_ptr(), H, W, W, H * W, 0, 0, H, W, rows.data_ptr(),
+        cols.data_ptr(), z_occ_max_dis, max_dist_penalty, obstacle_min_dist,
+        scale(z_occ_max_dis, cache.dtype, dt), sum_d.data_ptr(),
+        n_valid.data_ptr(), sum_far.data_ptr(), n_far.data_ptr(), B, pl.grid,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"score_partials_batched kernel launch failed: "
+                           f"CUDA error {err}")
+    score_partials_batched.launches += 1
+    return sum_d, n_valid, sum_far, n_far
+
+
+score_partials_batched.launches = 0
+
+
+def score_partials_batched_reference(cand6, idx, n_cand, px, py, n_pix,
+                                     cache, rows, cols,
+                                     z_occ_max_dis: float,
+                                     max_dist_penalty: float,
+                                     obstacle_min_dist: float):
+    """Plain PyTorch version of score_partials_batched (same contract):
+    score_partials_reference on each lane's inputs, stacked."""
+    B = cand6.shape[0]
+    rows_h, cols_h = rows.tolist(), cols.tolist()
+    parts = [score_partials_reference(
+        cand6[b], None if idx is None else idx[b], n_cand[b], px[b], py[b],
+        n_pix[b], cache[b], 0, rows_h[b], cols_h[b], z_occ_max_dis,
+        max_dist_penalty, obstacle_min_dist) for b in range(B)]
+    return tuple(torch.stack(p) for p in zip(*parts))

@@ -98,7 +98,7 @@ def _legacy_step(ranges, angles, valid, n, ctx: MapContext,
                                   fs.overflow}
 
 
-def _to_host(out: dict) -> dict:
+def to_host(out: dict) -> dict:
     """The outputs as numpy arrays of their own dtypes and shapes, read
     from the device in one transfer (every value, counts and flags
     included, is exact in float64)."""
@@ -235,13 +235,13 @@ class OnlineLocalizer:
         n_t = torch.full((), n, dtype=torch.int32, device=self.device)
 
         if self.mode == "legacy":
-            return _to_host(_legacy_step(r, a, v, n_t, self.ctx, self.cfg))
+            return to_host(_legacy_step(r, a, v, n_t, self.ctx, self.cfg))
 
         self.state, out = localization_step(
             self.state, (r, a, v, n_t, t[2 * N:2 * N + 3], t[2 * N + 3:]),
             self.ctx, self.cfg, coarse=self._coarse)
         self._prev_odom = odom
-        res = _to_host(out)
+        res = to_host(out)
         xy = pixel_to_world(res["pose"][None], *self._world)
         res["pose_world"] = np.array([xy[0, 0], xy[0, 1], res["pose"][2]])
         return res

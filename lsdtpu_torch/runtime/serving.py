@@ -1,0 +1,219 @@
+"""Multi-session serving: N robots localized in one batched step a tick
+(counterpart of lsdtpu/runtime/serving.py).
+
+A serving layer with no reference equivalent (the reference is one
+robot per process).  A fixed pool of session slots runs the per-frame
+step over a lane axis of all its slots (runtime/loop.py): every tick
+scores all slots' candidates in one launch of the lane-batched
+CalcScore kernel, and reads the outputs back in one device -> host
+copy, so one card serves a fleet.  Maps are padded onto a common canvas
+filled with the cap z_occ_max_dis (in the working type); per-slot
+TrackState and the per-slot pruning fields live on the device between
+ticks; joining/leaving sessions swaps a slot's map context and resets
+its state.  Slots without a submitted scan (idle, or never opened) run
+the step on an empty scan and keep their state.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from lsdtpu_torch import geometry as geo
+from lsdtpu_torch import resolve_device
+from lsdtpu_torch.config import DEFAULT, EngineConfig
+from lsdtpu_torch.match.associate import coarse_field, quantize_cache
+from lsdtpu_torch.runtime.loop import (MapContext, TrackState, batched_cfg,
+                                       init_state, localization_step,
+                                       numpy_dtype, torch_dtype)
+from lsdtpu_torch.runtime.online import to_host
+
+
+def _put(dst, slot: int, val) -> None:
+    """dst[slot] = val in place; u16 fields through int16 views (the
+    card's PyTorch has no uint16 indexing)."""
+    if dst.dtype == torch.uint16:
+        dst, val = dst.view(torch.int16), val.view(torch.int16)
+    dst[slot] = val
+
+
+def _pool_step(states: TrackState, inputs, ctxs: MapContext, active,
+               cfg: EngineConfig, coarse=None):
+    """One step over every slot; inactive slots keep their state.
+    coarse: optional (B, ch, cw) per-slot pruning fields, maintained by
+    the pool beside the slot fields (loop-invariant across ticks)."""
+    new_states, outs = localization_step(states, inputs, ctxs,
+                                         batched_cfg(cfg), coarse=coarse)
+    return TrackState(*(
+        geo.lane_where(active, getattr(new_states, f.name),
+                       getattr(states, f.name))
+        for f in dataclasses.fields(TrackState))), outs
+
+
+class SessionPool:
+    """Fixed-capacity pool of concurrent localization sessions on one
+    device.
+
+    >>> pool = SessionPool(16, (979, 1440))                 # on the card
+    >>> pool.open_session("r1", lines_info, map_cache, resol, ox, oy)
+    >>> pool.submit_scan("r1", ranges, angles, odom)
+    >>> out = pool.step()["r1"]                              # numpy dict
+
+    ``mesh`` (the slot axis spread over several cards) belongs to the
+    multi-device runners, which are not ported yet."""
+
+    def __init__(self, capacity: int, canvas_hw, cfg: EngineConfig = DEFAULT,
+                 dtype=np.float32, device="cuda", mesh=None):
+        if mesh is not None:
+            raise NotImplementedError(
+                "SessionPool(mesh=...) waits for the multi-device runners "
+                "(ROADMAP.md Queue 1, \"Multi-device runners\")")
+        self.capacity = capacity
+        self.cfg = cfg
+        self.dtype = numpy_dtype(dtype).type
+        self.device = resolve_device(device)
+        self.H, self.W = canvas_hw
+        dt = torch_dtype(dtype)
+        dev = self.device
+        M = cfg.shapes.max_map_lines
+        z = cfg.map.z_occ_max_dis
+        # honour match.cache_dtype like make_map_context does (the
+        # compressed field is per pool: all slots share one type)
+        self._quantize = lambda c: quantize_cache(
+            c, cfg.match.cache_dtype, z, float_dtype=dt)
+        self._ctxs = MapContext(
+            lines=torch.zeros((capacity, M, 10), dtype=dt, device=dev),
+            lines_mask=torch.zeros((capacity, M), dtype=torch.bool,
+                                   device=dev),
+            cache=self._quantize(torch.full((capacity, self.H, self.W), z,
+                                            dtype=dt, device=dev)
+                                 ).contiguous(),
+            rows=torch.zeros(capacity, dtype=torch.int32, device=dev),
+            cols=torch.zeros(capacity, dtype=torch.int32, device=dev),
+            resol=torch.ones(capacity, dtype=dt, device=dev),
+            ori_x=torch.zeros(capacity, dtype=dt, device=dev),
+            ori_y=torch.zeros(capacity, dtype=dt, device=dev))
+        self._states = init_state(dt, dev, lanes=capacity)
+        # per-slot pruning fields (match/associate.coarse_field),
+        # recomputed only when a slot's map changes - never per tick
+        self._coarse = (coarse_field(self._ctxs.cache, cfg.match.prune_block)
+                        if cfg.match.prune else None)
+        self._free: List[int] = list(range(capacity))
+        self._sessions: Dict[str, int] = {}
+        self._prev_odom: Dict[str, np.ndarray] = {}
+        self._pending: Dict[int, tuple] = {}
+
+    # -- session lifecycle ------------------------------------------------
+    def open_session(self, sid: str, lines_info, map_cache, resol,
+                     ori_x, ori_y) -> None:
+        if sid in self._sessions:
+            raise ValueError(f"session {sid!r} already open")
+        if not self._free:
+            raise RuntimeError("pool full")
+        h, w = map_cache.shape
+        if h > self.H or w > self.W:
+            raise ValueError(f"map {h}x{w} exceeds canvas "
+                             f"{self.H}x{self.W}")
+        M = self.cfg.shapes.max_map_lines
+        k = len(lines_info)
+        if k > M:
+            # caps are never silent (ShapeConfig contract)
+            raise ValueError(f"map has {k} lines > "
+                             f"shapes.max_map_lines={M}; raise the cap")
+        slot = self._free.pop(0)
+        dev = self.device
+        c = self._ctxs
+        dt = c.lines.dtype
+        c.lines[slot] = 0
+        c.lines[slot, :k] = torch.as_tensor(lines_info).to(dev, dt)
+        c.lines_mask[slot] = torch.arange(M, device=dev) < k
+        # the slot's canvas: its map, the cap elsewhere, in the working
+        # type (an f64 pool keeps the f64 field, as make_map_context does)
+        cache = torch.full((self.H, self.W), self.cfg.map.z_occ_max_dis,
+                           dtype=dt, device=dev)
+        cache[:h, :w] = torch.as_tensor(map_cache).to(dev, dt)
+        cache = self._quantize(cache)
+        _put(c.cache, slot, cache)
+        c.rows[slot], c.cols[slot] = h, w
+        for name, v in (("resol", resol), ("ori_x", ori_x),
+                        ("ori_y", ori_y)):
+            getattr(c, name)[slot] = float(v)
+        if self._coarse is not None:
+            _put(self._coarse, slot,
+                 coarse_field(cache, self.cfg.match.prune_block))
+        self._reset_slot(slot)
+        self._sessions[sid] = slot
+
+    def close_session(self, sid: str) -> None:
+        slot = self._sessions.pop(sid)
+        self._prev_odom.pop(sid, None)
+        self._pending.pop(slot, None)
+        self._free.append(slot)
+
+    def _reset_slot(self, slot: int) -> None:
+        fresh = init_state(self._states.kalman_x.dtype, self.device)
+        for f in dataclasses.fields(TrackState):
+            getattr(self._states, f.name)[slot] = getattr(fresh, f.name)
+
+    @property
+    def n_active(self) -> int:
+        return len(self._sessions)
+
+    # -- per-tick IO ------------------------------------------------------
+    def submit_scan(self, sid: str, ranges, angles,
+                    odom: Optional[np.ndarray] = None) -> None:
+        slot = self._sessions[sid]
+        N = self.cfg.shapes.points_per_scan
+        n = len(ranges)
+        if n > N:
+            # caps are never silent (ShapeConfig contract)
+            raise ValueError(f"scan has {n} points > "
+                             f"shapes.points_per_scan={N}; raise the cap")
+        odom = np.zeros(3, self.dtype) if odom is None else \
+            np.asarray(odom, self.dtype)
+        prev = self._prev_odom.get(sid, odom)
+        if slot in self._pending:
+            # overwriting an unprocessed scan: keep ITS prev (the last
+            # odometry the filter actually consumed), or the dropped
+            # scan's motion would vanish from the UKF prediction
+            prev = self._pending[slot][3]
+        self._pending[slot] = (np.asarray(ranges), np.asarray(angles[:n]),
+                               n, prev, odom)
+        self._prev_odom[sid] = odom
+
+    def step(self) -> Dict[str, dict]:
+        """One batched step over all slots with one host -> device copy
+        of the submitted scans and one device -> host read of the
+        outputs; returns the outputs (numpy) of every session that had
+        a scan."""
+        if not self._pending:
+            return {}
+        N = self.cfg.shapes.points_per_scan
+        B = self.capacity
+        # per slot: ranges, angles (zero-padded to N), odom_prev,
+        # odom_cur, the point count and the active flag (both exact)
+        buf = np.zeros((B, 2 * N + 8), self.dtype)
+        for slot, (r, a, n, p, c) in self._pending.items():
+            buf[slot, :n] = r
+            buf[slot, N:N + n] = a
+            buf[slot, 2 * N:2 * N + 3] = p
+            buf[slot, 2 * N + 3:2 * N + 6] = c
+            buf[slot, 2 * N + 6] = n
+            buf[slot, 2 * N + 7] = 1
+        t = torch.from_numpy(buf).to(self.device)
+        n = t[:, 2 * N + 6].to(torch.int32)
+        valid = torch.arange(N, device=self.device) < n[:, None]
+        inputs = (t[:, :N], t[:, N:2 * N], valid, n, t[:, 2 * N:2 * N + 3],
+                  t[:, 2 * N + 3:2 * N + 6])
+        self._states, outs = _pool_step(self._states, inputs, self._ctxs,
+                                        t[:, 2 * N + 7] > 0, self.cfg,
+                                        self._coarse)
+        host = to_host(outs)
+        results = {sid: {k: v[slot] for k, v in host.items()}
+                   for sid, slot in self._sessions.items()
+                   if slot in self._pending}
+        self._pending.clear()
+        return results

@@ -4,13 +4,17 @@ storage type and on a window), the NFA rect_counts kernel
 kernels (lsdtpu_torch/csrc/grow.cu) against their plain PyTorch versions
 on the card; map prep, the streaming OnlineLocalizer (tracking and
 legacy), the pose polish and a checkpoint resume on the card against
-the CPU.  Marked
+the CPU; the lane-batched CalcScore launch against its plain version
+and against single-lane launches (bitwise), batched rollouts and the
+serving pool against their solo counterparts on the card.  Marked
 ``cuda``: each test decides inside itself whether a card is present and
 skips where there is none.  Run on the card with
 ``python -m pytest -m cuda tests/test_torch_*.py``.
 
 Tiers: counts exact; f64 sums rtol 1e-12; f32 sums rtol/atol 2e-6
-(different summation order); repeated launches bitwise equal; f64 map lines card vs CPU within 1e-6 px
+(different summation order); repeated launches bitwise equal; a batched
+launch's lanes bitwise equal to single-lane launches; f64 map lines card
+vs CPU within 1e-6 px
 (CUDA's sin/cos/atan2 and reduction order differ from the CPU's); FIFO
 growth in f64: the same region, queue and count, reg_deg within 1e-12
 (only atan2 differs: both read the same sin/cos tables); streaming on
@@ -623,3 +627,155 @@ def test_checkpoint_resume_on_card(tmp_path):
     c.restore(path)
     np.testing.assert_allclose(_stream(c, ds, range(4, F))["pose"],
                                want["pose"][4:], rtol=0, atol=1e-6)
+
+
+# --- the lane-batched CalcScore launch, batched rollouts and the serving
+# pool on the card -----------------------------------------------------------
+
+def _lane_args(dtype, storage, idx, B=5, K=2048, P=4096, seed=11):
+    """score_partials_batched arguments on the card: B lanes of random
+    rigid transforms over a (B, 979, 1440) canvas whose lanes hold maps
+    of their own extents (each padded with the cap), ragged live counts
+    (a relocking lane of 1072 beside tracking lanes of ~21, an empty
+    lane)."""
+    from lsdtpu_torch.match import associate as tas
+    rng = np.random.default_rng(seed)
+    H, W = 979, 1440
+    rows = np.array([979, 700, 979, 512, 300][:B], np.int32)
+    cols = np.array([1440, 1440, 900, 700, 300][:B], np.int32)
+    th = rng.uniform(-np.pi, np.pi, (B, K))
+    feats = np.stack([np.cos(th), np.sin(th), rng.uniform(300, 600, (B, K)),
+                      rng.uniform(300, 600, (B, K)),
+                      rng.uniform(0, 1440, (B, K)),
+                      rng.uniform(0, 979, (B, K))], 1).astype(dtype)
+    px = rng.uniform(200, 700, (B, P)).astype(dtype)
+    py = rng.uniform(200, 700, (B, P)).astype(dtype)
+    cache = np.ones((B, H, W), dtype)
+    for b in range(B):
+        cache[b, :rows[b], :cols[b]] = rng.uniform(
+            0.0, 1.3, (rows[b], cols[b])).clip(max=1.0)
+    n_cand = np.array([1072, 21, 25, 0, 19][:B], np.int32)
+    n_pix = np.array([1954, 1852, 1800, 1700, 4000][:B], np.int32)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to("cuda")
+    sel = (t(np.stack([rng.permutation(K) for _ in range(B)])
+             .astype(np.int32)) if idx else None)
+    field = tas.quantize_cache(t(cache), storage, 1.0,
+                               float_dtype=t(px).dtype).contiguous()
+    return (t(feats), sel, t(n_cand), t(px), t(py), t(n_pix), field,
+            t(rows), t(cols), 1.0, 10.0, 0.8)
+
+
+@pytest.mark.parametrize("storage", ["f32", "bf16", "u16", "u8"])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("idx", [False, True])
+def test_batched_kernel_matches_plain_and_single_lanes_on_card(storage,
+                                                               dtype, idx):
+    """One launch for all lanes equals its plain version (counts exact,
+    sums within the kernel tier) and, lane by lane, a single-lane launch
+    on that lane's inputs bit for bit; dead slots are zero per lane."""
+    _need_card()
+    from lsdtpu_torch.ops import score as sc
+    args = _lane_args(dtype, storage, idx)
+    cand, sel, n_cand, px, py, n_pix, field, rows, cols = args[:9]
+    before = sc.score_partials_batched.launches
+    got = sc.score_partials_batched(*args)
+    torch.cuda.synchronize()
+    assert sc.score_partials_batched.launches == before + 1
+    want = sc.score_partials_batched_reference(*args)
+    for i in (1, 3):
+        assert torch.equal(got[i], want[i])
+    for i in (0, 2):
+        torch.testing.assert_close(got[i], want[i], rtol=_TOL[dtype][0],
+                                   atol=_TOL[dtype][1])
+    for b in range(cand.shape[0]):
+        one = sc.score_partials(cand[b], None if sel is None else sel[b],
+                                n_cand[b:b + 1], px[b], py[b], n_pix[b:b + 1],
+                                field[b], 0, int(rows[b]), int(cols[b]),
+                                *args[9:])
+        for g, o in zip(got, one):
+            assert torch.equal(g[b], o)
+            assert not g[b, int(n_cand[b]):].any()
+    assert int(got[1][0].max()) > 0
+    # 50 repeats give the same bits
+    for _ in range(50):
+        again = sc.score_partials_batched(*args)
+    torch.cuda.synchronize()
+    for a, g in zip(again, got):
+        assert torch.equal(a, g)
+
+
+def test_batched_kernel_rejects_bad_inputs_on_card():
+    _need_card()
+    from lsdtpu_torch.ops import score as sc
+    args = list(_lane_args(np.float32, "f32", False, B=2, K=64, P=128))
+    with pytest.raises(TypeError):          # rows must be int32 (B,)
+        sc.score_partials_batched(*args[:7], args[7].long(), *args[8:])
+    with pytest.raises(ValueError):         # a canvas per lane
+        sc.score_partials_batched(*args[:6], args[6][:1], *args[7:])
+    with pytest.raises(ValueError):         # one device
+        sc.score_partials_batched(*args[:3], args[3].cpu(), *args[4:])
+
+
+def test_run_batch_lanes_match_solo_rollouts_on_card():
+    """run_batch on the card (one batched CalcScore launch a frame)
+    against each lane's solo run_sequence on the card, f64: identical
+    decisions, poses within 1e-6 px (the f64 rollout's tier)."""
+    _need_card()
+    from lsdtpu_torch.ops import score as sc
+    from lsdtpu_torch.runtime import batch as tbatch
+    from lsdtpu_torch.runtime import loop
+    from torch_parity import lane_scenes
+    dss, arts = lane_scenes()
+    fr, ctx, lens = tbatch.stack_batch(dss, arts, dtype=np.float64,
+                                       device="cuda")
+    before = sc.score_partials_batched.launches
+    got = {k: v.cpu().numpy() for k, v in
+           tbatch.run_batch(fr, ctx, device="cuda").items()}
+    assert sc.score_partials_batched.launches - before == fr["n"].shape[1]
+    for b, (ds, art) in enumerate(zip(dss, arts)):
+        p = ds.param
+        c1 = loop.make_map_context(art[0], art[1], p.resol, p.ori_x, p.ori_y,
+                                   dtype=np.float64, device="cuda")
+        solo = {k: v.cpu().numpy() for k, v in loop.run_sequence(
+            loop.stack_frames(ds, dtype=np.float64), c1,
+            device="cuda").items()}
+        L = lens[b]
+        np.testing.assert_array_equal(got["n_candidates"][b, :L],
+                                      solo["n_candidates"])
+        np.testing.assert_array_equal(np.isfinite(got["score"][b, :L]),
+                                      np.isfinite(solo["score"]))
+        np.testing.assert_allclose(got["pose"][b, :L], solo["pose"], rtol=0,
+                                   atol=1e-6)
+
+
+def test_pool_matches_online_sessions_on_card():
+    """SessionPool on the card against per-robot OnlineLocalizer sessions
+    on the card, f64: identical decisions, poses within 1e-6 px."""
+    _need_card()
+    from lsdtpu_torch.ops import score as sc
+    from lsdtpu_torch.runtime.online import OnlineLocalizer
+    from lsdtpu_torch.runtime.serving import SessionPool
+    from torch_parity import lane_scenes
+    dss, arts = lane_scenes()
+    pool = SessionPool(4, (200, 260), dtype=np.float64, device="cuda")
+    locs = {}
+    for i in (0, 1):
+        p = dss[i].param
+        args = (arts[i][0], arts[i][1], p.resol, p.ori_x, p.ori_y)
+        pool.open_session(str(i), *args)
+        locs[str(i)] = OnlineLocalizer(dtype=np.float64, device="cuda")
+        locs[str(i)].set_map_artifacts(*args)
+    before = sc.score_partials_batched.launches
+    for f in range(6):
+        want = {}
+        for sid, loc in locs.items():
+            ds = dss[int(sid)]
+            scan = (ds.frames[f][:, 0], ds.frames[f][:, 1], ds.odom[f + 1])
+            pool.submit_scan(sid, *scan)
+            want[sid] = loc.push_scan(*scan)
+        got = pool.step()
+        for sid in locs:
+            assert got[sid]["n_candidates"] == want[sid]["n_candidates"]
+            np.testing.assert_allclose(got[sid]["pose"], want[sid]["pose"],
+                                       rtol=0, atol=1e-6)
+    assert sc.score_partials_batched.launches - before == 6

@@ -6,7 +6,9 @@ out.  The grid never exceeds the resident blocks, every live slot goes
 to exactly one block and every live pixel to exactly one thread, rounds
 start on 16-byte boundaries, and the per-pixel contributions added in
 the kernel's order equal the plain version (counts exact, f64 sums to
-1e-12); the kernel's C-round thresholds equal C-round.
+1e-12); the kernel's C-round thresholds equal C-round.  A batched
+launch's lanes share the resident blocks, and ``split_lanes`` /
+``zero_split`` write every (lane, slot) output once.
 
 NFA (csrc/nfa.cu): a plain torch mirror of the kernel's decomposition -
 per-column clipped heights, their inclusive scan over column tiles of
@@ -81,6 +83,56 @@ def test_score_split_covers_each_pair_once(grid, n_live, n_pix):
     per_warp = max(sum(len(pixels[t]) for t in range(w, w + 32))
                    for w in range(0, osc.THREADS, 32))
     assert per_warp < 1 << 16
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("K,P,n_sm", [(2048, 4096, H100_SMS), (21, 300, 1),
+                                      (16384, 9000, 114)])
+@pytest.mark.parametrize("lanes", [1, 8, 16, 64, 300])
+def test_score_plan_lanes_share_the_resident_blocks(K, P, n_sm, dtype,
+                                                   lanes):
+    """A batched launch's grid is (grid, lanes): the lanes share the
+    resident blocks evenly (at least one block a lane), and one lane is
+    the single-frame plan."""
+    pl = osc.plan(K, P, n_sm, dtype, lanes=lanes)
+    resident = n_sm * osc.RESIDENT[dtype]
+    assert pl.grid == max(1, min(resident // lanes, K))
+    assert pl.grid * lanes <= max(resident, lanes)
+    if lanes == 1:
+        assert pl == osc.plan(K, P, n_sm, dtype)
+        assert pl.grid == max(1, min(resident, K))
+
+
+@pytest.mark.parametrize("B,grid", [(8, 49), (16, 24), (64, 6), (1, 396),
+                                    (3, 1)])
+def test_score_lane_split_writes_each_lane_slot_once(B, grid):
+    """The lane decomposition of the batched launch, for random per-lane
+    live counts (one relocking lane of 325 survivors, an empty lane, a
+    full one): every live (lane, slot) is scored by exactly one block of
+    its lane, over each of its live pixels once, and every dead slot of
+    every lane is zeroed exactly once, so each (lane, slot) output is
+    written once."""
+    rng = np.random.default_rng(B * 1000 + grid)
+    K = 400
+    n_live = rng.integers(0, 40, B)
+    n_live[0] = 325
+    n_live[-1] = 0 if B > 1 else n_live[-1]
+    if B > 2:
+        n_live[1] = K
+    n_pix = rng.integers(0, 3000, B)
+    lanes = osc.split_lanes(grid, n_live, n_pix)
+    assert len(lanes) == B
+    scored = []
+    for ln, (slots, pixels) in enumerate(lanes):
+        live = [b for blk in slots for b in blk]
+        assert sorted(live) == list(range(n_live[ln]))
+        assert sorted(i for th in pixels for i in th) == \
+            list(range(n_pix[ln]))
+        dead = [s for blk in osc.zero_split(grid, int(n_live[ln]), K)
+                for th in blk for s in th]
+        assert sorted(live + dead) == list(range(K))   # each slot once
+        scored += [(ln, b) for b in live]
+    assert len(scored) == len(set(scored)) == int(n_live.sum())
 
 
 def _frame(K, P, n_live, n_pix, seed):

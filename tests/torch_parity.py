@@ -17,11 +17,14 @@ from lsdtpu.mapprep import lsd as jlsd
 from lsdtpu.oracle import driver as odrv
 from lsdtpu.config import DEFAULT as JDEFAULT
 from lsdtpu.oracle import lsd as olsd
+from lsdtpu.runtime import batch as jbatch
 from lsdtpu.runtime import loop as jloop
 from lsdtpu.runtime import online as jonline
 from lsdtpu_torch.mapprep.gaussian import gaussian_sampler
 from lsdtpu_torch.mapprep.gradient import gradient_field
 from lsdtpu_torch.config import DEFAULT
+from lsdtpu_torch.io import synth as tsynth
+from lsdtpu_torch.runtime import batch as tbatch
 from lsdtpu_torch.runtime import loop as tloop
 from lsdtpu_torch.runtime import online as tonline
 from test_fuzz_parity import synth_dataset
@@ -179,3 +182,36 @@ def grid_payload(map_value):
     grid[map_value == 0] = 255
     grid[map_value == 255] = 0
     return grid.reshape(-1)
+
+
+# batch lanes of different map sizes and lengths: (seed, H, W, frames)
+LANES = ((0, 200, 260, 10), (1, 180, 240, 10), (2, 210, 250, 7))
+
+
+@functools.lru_cache(maxsize=None)
+def lane_scenes(lanes=LANES):
+    """(datasets, [(lines_info, map_cache)]) of synthetic scenes, one per
+    (seed, H, W, frames) entry (the port's generator, which is
+    test_fuzz_parity's at the default size), map artifacts from the
+    numpy oracle."""
+    dss = [tsynth.synth_dataset(s, F=f, H=h, W=w).dataset
+           for s, h, w, f in lanes]
+    arts = [odrv.prepare_map(d.map_value.copy(), d.param.resol) for d in dss]
+    return dss, [(a.lines_info, a.map_cache) for a in arts]
+
+
+def batch_contexts(lanes=LANES, dtype=np.float64, cfgs=None, **kw):
+    """The JAX and the port stack_batch of the same scenes (port on the
+    CPU): ((frames, ctxs, lens), (frames, ctxs, lens))."""
+    dss, arts = lane_scenes(lanes)
+    jcfg, tcfg = cfgs or (JDEFAULT, DEFAULT)
+    return (jbatch.stack_batch(dss, arts, jcfg, dtype=dtype, **kw),
+            tbatch.stack_batch(dss, arts, tcfg, dtype=dtype, device="cpu",
+                               **kw))
+
+
+def solo_context(ds, art, dtype=np.float64, **kw):
+    """The port's MapContext of one lane's scene alone, on the CPU."""
+    p = ds.param
+    return tloop.make_map_context(art[0], art[1], p.resol, p.ori_x, p.ori_y,
+                                  dtype=dtype, device="cpu", **kw)
