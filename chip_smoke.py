@@ -90,18 +90,38 @@ its own line; any failure exits non-zero before the last line:
      (per-tick latency to numpy, scans/s, one launch a tick), a robot
      leaving and another taking its slot, and an f64 pool against
      per-robot OnlineLocalizer sessions on the card;
- 12. a JSON line of the kernels (with their launches on each path), the
+ 12. the command-line interface, on the same scene written to a
+     dataset directory in the reference's text formats (realPos and
+     recored_Odom from every 10th true pose) and read back through the
+     port's loaders and native parser, equal to the scene: in this
+     process, lsdtpu_torch.cli.main over one artifact cache -
+     cli_prepare_map (cold; the --dump files reload to the artifacts),
+     cli_run (all frames tracked, records equal to the library rollout
+     after the CLI's rounding, the ATE summary), cli_run_legacy,
+     cli_refine (1 and 8 segments; the f64 solve on the card within
+     1e-9 px/deg of the CPU's, 8 segments within 1e-6 of 1, both timed),
+     cli_profile (the per-stage split of a frame, a torch.profiler trace
+     holding the CalcScore kernel), cli_batch (two lanes, and --concat),
+     cli_serve (two robots), cli_viz (the PNGs open); then
+     `python -m lsdtpu_torch.cli run` in a process of its own; every
+     kernel's launches counted from 0 around each command;
+ 13. a JSON line of the kernels (with their launches on each path), the
      nvidia-smi name/power line, and the last line
      {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
+import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1421,6 +1441,395 @@ def serving(maps, cfg, device, smi, kind):
     return total
 
 
+CLI_FRAMES_LEGACY = 60   # cli_run_legacy: frames of `run --mode legacy`
+CLI_FRAMES_PROFILE = 20  # cli_profile: frames a profiled rollout
+CLI_FRAMES_VIZ = 20      # cli_viz: frames of `run --viz`
+CLI_KEYFRAME_EVERY = 10  # realPos.txt holds every 10th frame's true pose
+REFINE_TOL = 1e-9        # refined poses, card vs CPU (px, deg; f64)
+SEGMENTS_TOL = 1e-6      # refined poses, 8 segments vs 1 (px, deg)
+
+
+def _wrappers():
+    from lsdtpu_torch.ops import grow, nfa, score
+    return {"score_partials": score.score_partials,
+            "score_partials_batched": score.score_partials_batched,
+            "rect_counts": nfa.rect_counts, "grow_fifo": grow.grow_fifo,
+            "radius_reducer_fifo": grow.radius_reducer_fifo}
+
+
+def write_dataset(root, scene):
+    """The scene as a dataset directory in the reference's text formats
+    (doubles as %.17g, exact): mapParam, mapValue, Odom (its F + 1 rows),
+    Lidar (360 rows a frame, inf where a ray hit nothing), realPos (the
+    true position of every CLI_KEYFRAME_EVERY-th frame) and recored_Odom
+    (their 1-based indices)."""
+    ds = scene.dataset
+    p = ds.param
+    with open(os.path.join(root, "mapParam.txt"), "w") as f:
+        f.write(f"{p.col} {p.row} {p.resol!r} {p.ori_x!r} {p.ori_y!r}\n")
+    np.savetxt(os.path.join(root, "mapValue.txt"), ds.map_value, fmt="%d")
+    np.savetxt(os.path.join(root, "Odom.txt"), ds.odom, fmt="%.17g")
+    rows = []
+    for fr in ds.frames:
+        full = np.full((360, 2), np.inf)
+        full[:len(fr)] = fr
+        full[len(fr):, 1] = 0.0
+        rows.append(full)
+    np.savetxt(os.path.join(root, "Lidar.txt"), np.concatenate(rows),
+               fmt="%.17g")
+    keys = np.arange(CLI_KEYFRAME_EVERY, len(ds.frames) + 1,
+                     CLI_KEYFRAME_EVERY)
+    np.savetxt(os.path.join(root, "realPos.txt"), scene.true_pos[keys - 1],
+               fmt="%.17g", delimiter="\t")
+    np.savetxt(os.path.join(root, "recored_Odom.txt"), keys, fmt="%d")
+    return keys
+
+
+def check_loaded(got, scene, keys):
+    """Fail unless the dataset read back equals the scene (the loader's
+    odometry quirks applied: Odom[0].x = 0 and the last row repeated)."""
+    ds = scene.dataset
+    odom = ds.odom.copy()
+    odom[0, 0] = 0.0
+    odom = np.concatenate([odom, odom[-1:]])
+    bad = [name for name, ok in (
+        ("param", got.param == ds.param),
+        ("map_value", np.array_equal(got.map_value, ds.map_value)),
+        ("odom", np.array_equal(got.odom, odom)),
+        ("frames", len(got.frames) == len(ds.frames) and all(
+            np.array_equal(a, b) for a, b in zip(got.frames, ds.frames))),
+        ("real_pos", np.array_equal(got.real_pos,
+                                    scene.true_pos[keys - 1])),
+        ("recorded_odom", np.array_equal(got.recorded_odom, keys)))
+        if not ok]
+    if bad:
+        fail(f"cli_dataset: the dataset read back differs in {bad}")
+
+
+def cli_call(tag, argv):
+    """lsdtpu_torch.cli.main(argv) in this process, its output captured,
+    with every kernel's launch count set to 0 just before and read just
+    after.  Fails unless it exits 0.  Returns (stdout JSON records,
+    stderr lines, launches, seconds)."""
+    import torch
+    from lsdtpu_torch import cli
+    wrappers = _wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main(argv)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    if rc != 0:
+        fail(f"{tag}: `lsdtpu-torch {' '.join(argv)}` exited {rc}: "
+             f"{err.getvalue()[-2000:]}")
+    recs = [json.loads(ln) for ln in out.getvalue().splitlines()
+            if ln.startswith("{")]
+    return recs, err.getvalue().splitlines(), launches, seconds
+
+
+def need_launches(tag, launches, names):
+    """Fail unless each named kernel launched at least once."""
+    idle = [n for n in names if launches[n] == 0]
+    if idle:
+        fail(f"{tag}: {idle} launched no time ({launches})")
+
+
+def run_records(outs):
+    """The `run` records the CLI prints for these outputs (numpy)."""
+    import math
+    recs = []
+    for f in range(len(outs["score"])):
+        sc = float(outs["score"][f])
+        rec = {"frame": f + 1,
+               "pose": [round(float(v), 3) for v in outs["pose"][f]],
+               "score": round(sc, 4) if math.isfinite(sc) else None,
+               "n_candidates": int(outs["n_candidates"][f])}
+        if outs["coasting"][f]:
+            rec["coasting"] = True
+        if outs["relock_deferred"][f]:
+            rec["relock_deferred"] = True
+        recs.append(rec)
+    return recs
+
+
+def wrap_diff(a, b):
+    """Largest |a - b| over poses (x, y px; heading deg, wrapped)."""
+    d = np.abs(a - b)
+    d[:, 2] = np.abs((a[:, 2] - b[:, 2] + 180.0) % 360.0 - 180.0)
+    return float(d.max())
+
+
+def timed_solve(fn, device, reps=3):
+    """(result, median ms) of fn() to value on ``device``."""
+    import torch
+    times = []
+    for _ in range(reps):
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        out = res[0].cpu().numpy()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return out, float(np.median(times))
+
+
+def cli_phases(scene, device, smi, kind):
+    """The port's command-line interface on the card, in this process
+    (lsdtpu_torch.cli.main), over the scene written to a dataset
+    directory; returns {path: {kernel: launches}}."""
+    import torch
+    from lsdtpu_torch import cli
+    from lsdtpu_torch.config import DEFAULT
+    from lsdtpu_torch.io import loaders, native, refdump
+    from lsdtpu_torch.refine import pose_graph
+    from lsdtpu_torch.render import render_line_image
+    from lsdtpu_torch.runtime import loop
+    from lsdtpu_torch.runtime.artifacts import prepare_map_cached
+    from lsdtpu_torch.runtime.online import to_host
+
+    tmp = tempfile.mkdtemp(prefix="lsdtpu_torch_cli_")
+    try:
+        data = os.path.join(tmp, "data")
+        cache_dir = os.path.join(tmp, "cache")
+        os.makedirs(data)
+        common = ["--data", data, "--cache-dir", cache_dir, "--device",
+                  device.type]
+        F = len(scene.dataset.frames)
+        by_path = {}
+
+        # --- the dataset directory, read back through the native parser
+        t0 = time.perf_counter()
+        keys = write_dataset(data, scene)
+        t_write = time.perf_counter() - t0
+        if not native.available():
+            fail(f"cli_dataset: the native parser did not build: "
+                 f"{native.build_error()}")
+        native.load_grid_native.calls = native.load_doubles_native.calls = 0
+        t0 = time.perf_counter()
+        ds = loaders.load_dataset(data)
+        t_load = time.perf_counter() - t0
+        parsed = (native.load_grid_native.calls,
+                  native.load_doubles_native.calls)
+        if parsed != (1, 3):
+            fail(f"cli_dataset: {parsed} (grid, float) files parsed "
+                 "natively, expected (1, 3)")
+        check_loaded(ds, scene, keys)
+        phase("cli_dataset", card=repr(smi), frames=F, keyframes=len(keys),
+              write_s=round(t_write, 2), load_s=round(t_load, 3),
+              native_parser=True, native_files=repr(parsed),
+              equal_to_scene=True)
+
+        # --- prepare-map, cold, with the reference-format dump
+        dump = os.path.join(tmp, "dump")
+        recs, _err, launches, secs = cli_call(
+            "cli_prepare_map", ["prepare-map", *common, "--dump", dump])
+        by_path["cli_prepare_map"] = launches
+        need_launches("cli_prepare_map", launches,
+                      ("rect_counts", "grow_fifo"))
+        lines, cache = prepare_map_cached(
+            ds.map_value, ds.param.resol, DEFAULT.map.z_occ_max_dis,
+            cache_dir=cache_dir, device=device, growth=DEFAULT.lsd.growth)
+        l_np, c_np = lines.cpu().numpy(), cache.cpu().numpy()
+        H, W = ds.map_value.shape
+        img = render_line_image(lines, torch.ones(len(lines), dtype=torch.bool,
+                                                  device=device), H, W)
+        shifted = np.zeros((H, W), np.int64)
+        shifted[:-1, :-1] = img.cpu().numpy()[1:, 1:] > 0
+        same = (np.array_equal(loaders.load_lines_info(os.path.join(
+                    dump, "MaplinesInfo.txt")).astype(l_np.dtype), l_np),
+                np.array_equal(refdump.load_map_cache(os.path.join(
+                    dump, "mapCache.txt")).astype(c_np.dtype), c_np),
+                np.array_equal(np.loadtxt(os.path.join(
+                    dump, "MaplineIm.txt"), dtype=np.int64), shifted))
+        if not all(same) or recs[0]["lines"] != len(l_np):
+            fail(f"cli_prepare_map: the dump does not reload to the "
+                 f"artifacts (lines, cache, lineIm equal: {same})")
+        phase("cli_prepare_map", device=repr(kind), power=repr(smi),
+              cold_s=secs, record_seconds=recs[0]["seconds"],
+              lines=recs[0]["lines"], cache_shape=repr(recs[0]["cache_shape"]),
+              dump_reloads_equal=True, launches=repr(launches))
+
+        # --- run: all frames, against the library rollout
+        recs, err, launches, secs = cli_call("cli_run", ["run", *common])
+        by_path["cli_run"] = launches
+        summary = json.loads(err[-1])
+        if launches["score_partials"] != F or len(recs) != F:
+            fail(f"cli_run: {len(recs)} records, launches {launches}")
+        ctx = loop.make_map_context(lines, cache, ds.param.resol,
+                                    ds.param.ori_x, ds.param.ori_y,
+                                    dtype=np.float32, device=device)
+        fr = loop.stack_frames(ds, dtype=np.float32)
+        t0 = time.perf_counter()
+        outs = to_host(loop.run_sequence(fr, ctx, DEFAULT, device=device))
+        lib_ms = (time.perf_counter() - t0) * 1e3
+        want = run_records(outs)
+        diff = next((i for i, (a, b) in enumerate(zip(recs, want))
+                     if a != b), None)
+        if diff is not None:
+            fail(f"cli_run: record {diff} {recs[diff]} differs from the "
+                 f"library rollout's {want[diff]}")
+        if summary["tracked"] != F or "ate_rmse_m" not in summary:
+            fail(f"cli_run: summary {summary}")
+        phase("cli_run", device=repr(kind), power=repr(smi), frames=F,
+              tracked=summary["tracked"], ate_rmse_m=summary["ate_rmse_m"],
+              ate_keyframes=summary["ate_keyframes"],
+              candidate_overflow_frames=int(outs["candidate_overflow"].sum()),
+              cli_wall_s=summary["wall_s"],
+              cli_scans_per_s=summary["scans_per_sec"],
+              library_ms=lib_ms, library_scans_per_s=F / lib_ms * 1e3,
+              records_equal_library=True, command_s=secs,
+              launches=repr(launches))
+
+        # --- run --mode legacy
+        recs, err, launches, secs = cli_call(
+            "cli_run_legacy", ["run", *common, "--mode", "legacy",
+                               "--frames", str(CLI_FRAMES_LEGACY)])
+        by_path["cli_run_legacy"] = launches
+        need_launches("cli_run_legacy", launches, ("rect_counts",))
+        summary = json.loads(err[-1])
+        if len(recs) != CLI_FRAMES_LEGACY or not all(
+                np.isfinite(r["pose"]).all() for r in recs):
+            fail(f"cli_run_legacy: {len(recs)} records or non-finite poses")
+        phase("cli_run_legacy", device=repr(kind), power=repr(smi),
+              frames=summary["frames"], tracked=summary["tracked"],
+              command_s=secs, launches=repr(launches))
+
+        # --- refine, 1 and 8 segments; the solve card vs CPU in f64
+        rec = {}
+        for seg in (1, 8):
+            recs, _err, launches, secs = cli_call(
+                f"cli_refine_{seg}", ["refine", *common, "--segments",
+                                      str(seg)])
+            by_path[f"cli_refine_{seg}"] = launches
+            if launches["score_partials"] != F:
+                fail(f"cli_refine_{seg}: launches {launches}")
+            rec[seg] = recs[0]
+        args = cli.refine_inputs(outs, 1)
+        ref_gpu, gpu_ms = timed_solve(lambda: pose_graph.refine_trajectory(
+            *args, device=device), device)
+        ref_cpu, cpu_ms = timed_solve(lambda: pose_graph.refine_trajectory(
+            *args, device="cpu"), torch.device("cpu"))
+        args8 = cli.refine_inputs(outs, 8)
+        ref8, gpu8_ms = timed_solve(
+            lambda: pose_graph.refine_trajectory_distributed(
+                *args8, n_segments=8, device=device), device)
+        d_dev = wrap_diff(ref_gpu, ref_cpu)
+        d_seg = wrap_diff(ref8[:F], ref_gpu)
+        if not d_dev <= REFINE_TOL:
+            fail(f"cli_refine: card vs CPU refined poses differ by {d_dev}")
+        if not d_seg <= SEGMENTS_TOL:
+            fail(f"cli_refine: 8 segments vs 1 differ by {d_seg}")
+        from lsdtpu_torch.eval.ate import keyframe_ate
+        ate = round(keyframe_ate(ref_gpu, ds.real_pos, ds.recorded_odom,
+                                 ds.param.resol, ds.param.ori_x,
+                                 ds.param.ori_y).rmse, 4)
+        if rec[1]["ate_refined_rmse_m"] != ate:
+            fail(f"cli_refine: record {rec[1]} against the library's "
+                 f"refined ATE {ate}")
+        phase("cli_refine", device=repr(kind), power=repr(smi), frames=F,
+              n_measured=rec[1]["n_measured"],
+              ate_online_rmse_m=rec[1]["ate_online_rmse_m"],
+              ate_refined_rmse_m=rec[1]["ate_refined_rmse_m"],
+              ate_refined_rmse_m_8_segments=rec[8]["ate_refined_rmse_m"],
+              solve_card_ms=gpu_ms, solve_cpu_ms=cpu_ms,
+              solve_card_8_segments_ms=gpu8_ms,
+              card_vs_cpu_max_diff=d_dev, segments_8_vs_1_max_diff=d_seg)
+
+        # --- profile: per-stage split of a frame, a trace of the card
+        trace = os.path.join(tmp, "trace")
+        recs, _err, launches, secs = cli_call(
+            "cli_profile", ["profile", *common, "--frames",
+                            str(CLI_FRAMES_PROFILE), "--repeats", "2",
+                            "--trace", trace])
+        by_path["cli_profile"] = launches
+        need_launches("cli_profile", launches, ("score_partials",))
+        stages, steady = recs
+        path = os.path.join(trace, "trace.json")
+        with open(path) as fh:
+            has_kernel = "score_partials_kernel" in fh.read()
+        if not has_kernel:
+            fail("cli_profile: the trace holds no score_partials_kernel")
+        phase("cli_profile", device=repr(kind), power=repr(smi),
+              frame=stages["frame"],
+              per_stage_ms=json.dumps(stages["per_stage_ms"]),
+              steady_ms=steady["steady_ms"],
+              scans_per_sec=steady["scans_per_sec"],
+              frames=steady["frames"], trace_mb=round(
+                  os.path.getsize(path) / 2**20, 1),
+              trace_has_score_partials_kernel=True, command_s=secs,
+              launches=repr(launches))
+
+        # --- batch: two lanes; then --concat, one stream
+        for tag, extra in (("cli_batch", []), ("cli_batch_concat",
+                                                ["--concat"])):
+            recs, err, launches, secs = cli_call(
+                tag, ["batch", "--data", data, data, *common[2:], *extra])
+            by_path[tag] = launches
+            need_launches(tag, launches, ("score_partials" if extra else
+                                          "score_partials_batched",))
+            summary = json.loads(err[-1])
+            if [r["tracked"] for r in recs] != [F, F]:
+                fail(f"{tag}: records {recs}")
+            phase(tag, device=repr(kind), power=repr(smi),
+                  total_scans=summary["total_scans"],
+                  scans_per_sec=summary["scans_per_sec"],
+                  tracked=repr([r["tracked"] for r in recs]),
+                  command_s=secs, launches=repr(launches))
+
+        # --- serve: two robots through the pool
+        recs, err, launches, secs = cli_call(
+            "cli_serve", ["serve", "--data", data, data, *common[2:]])
+        by_path["cli_serve"] = launches
+        if launches["score_partials_batched"] != F:
+            fail(f"cli_serve: launches {launches}")
+        summary = json.loads(err[-1])
+        if [r["tracked"] for r in recs] != [F, F]:
+            fail(f"cli_serve: records {recs}")
+        phase("cli_serve", device=repr(kind), power=repr(smi),
+              robots=summary["robots"], ticks=summary["ticks"],
+              scans_per_sec=summary["scans_per_sec"],
+              ate_rmse_m=repr([r.get("ate_rmse_m") for r in recs]),
+              command_s=secs, launches=repr(launches))
+
+        # --- run --viz: the images open
+        from PIL import Image
+        viz = os.path.join(tmp, "viz")
+        _recs, err, launches, secs = cli_call(
+            "cli_viz", ["run", *common, "--frames", str(CLI_FRAMES_VIZ),
+                        "--viz", viz])
+        by_path["cli_viz"] = launches
+        paths = json.loads(err[-1])["viz"]
+        sizes = []
+        for p in paths:
+            with Image.open(p) as im:
+                im.load()
+                sizes.append(im.size)
+        if len(paths) != 6 or sizes[2] != (W, H):
+            fail(f"cli_viz: images {paths} of sizes {sizes}")
+        phase("cli_viz", card=repr(smi), images=len(paths),
+              trajectory_size=repr(sizes[2]), command_s=secs)
+
+        # --- the module entry point, in a process of its own
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-m", "lsdtpu_torch.cli",
+                              "run", *common, "--frames", "5"],
+                             capture_output=True, text=True, timeout=300,
+                             cwd=os.path.dirname(os.path.abspath(__file__)))
+        if res.returncode != 0 or len(res.stdout.splitlines()) != 5:
+            fail(f"cli_module: exit {res.returncode}: {res.stderr[-2000:]}")
+        phase("cli_module", card=repr(smi), exit_code=res.returncode,
+              records=len(res.stdout.splitlines()),
+              seconds=round(time.perf_counter() - t0, 2))
+        return by_path
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main():
     import torch
     # --- 1. device ---------------------------------------------------
@@ -2049,7 +2458,21 @@ def main():
     phase("batch", card=repr(smi),
           seconds=round(time.perf_counter() - t_batch, 2))
 
-    # --- 12. report ------------------------------------------------------
+    # --- 12. the command-line interface ------------------------------------
+    t_cli = time.perf_counter()
+    cli_runs = cli_phases(scene, device, smi, kind)
+    # each kernel's launches in each command's run (the two refine and the
+    # two batch commands summed)
+    cli_paths = {}
+    for tag, counts in cli_runs.items():
+        path = tag.rsplit("_", 1)[0] if tag.startswith(
+            ("cli_refine_", "cli_batch_")) else tag
+        for k, v in counts.items():
+            cli_paths.setdefault(path, dict.fromkeys(counts, 0))[k] += v
+    phase("cli", card=repr(smi), launches=json.dumps(cli_paths),
+          seconds=round(time.perf_counter() - t_cli, 2))
+
+    # --- 13. report ------------------------------------------------------
     main_case = cases[1]      # relock frame as the main path scores it
     kern = {
         "name": "score_partials", "route": "cuda",
@@ -2109,6 +2532,7 @@ def main():
             "replaces_note": "an XLA while_loop of the reference package; "
                              "no Pallas kernel",
             "checked": True, "launches": launches_f[name],
+            "launches_by_path": {"end_to_end_fifo_f32": launches_f[name]},
             "max_abs_err": max_rd if name == "grow_fifo" else 0.0,
             "ms": run["ms"], "ms_source": run["ms_source"],
             "plain_ms": run["plain_ms"], "bound_ms": run["bound_ms"],
@@ -2142,8 +2566,11 @@ def main():
                   "summation order are the single-lane launch's",
         "cases": batch_cases,
     }
-    print(json.dumps({"kernels": [kern, batched_kern, nfa_kern]
-                      + fifo_kern}), flush=True)
+    kernels = [kern, batched_kern, nfa_kern] + fifo_kern
+    for k in kernels:
+        k["launches_by_path"].update(
+            {path: counts[k["name"]] for path, counts in cli_paths.items()})
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

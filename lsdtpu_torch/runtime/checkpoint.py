@@ -57,6 +57,12 @@ def save_state(path: str, state: TrackState, prev_odom=None) -> None:
         raise
 
 
+def load_state(path: str, dtype=None, device="cuda") -> TrackState:
+    """The TrackState of a checkpoint on ``device`` (load_session
+    without the odometry anchor)."""
+    return load_session(path, dtype, device)[0]
+
+
 def load_session(path: str, dtype=None, device="cuda"):
     """Returns (TrackState on ``device``, prev_odom numpy array or
     None).  dtype (torch or numpy float type): the session dtype the

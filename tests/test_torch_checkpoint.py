@@ -162,3 +162,29 @@ def test_default_device_is_the_card(tmp_path):
         tckpt.load_session(path)
     state, _ = tckpt.load_session(path, device="cpu")
     assert np_(state.kalman_x).shape == (9,)
+
+
+@pytest.mark.parametrize("dtype", [None, np.float32])
+def test_load_state_reads_a_jax_checkpoint(tmp_path, dtype):
+    """load_state gives load_session's TrackState (without the odometry
+    anchor) of a file the JAX package wrote, and the JAX load_state's
+    values."""
+    ds, _ = scene(SEED)
+    j, _ = localizers(SEED)
+    _push(j, ds, range(CUT))
+    path = str(tmp_path / "jax.npz")
+    j.save(path)
+    got = convert.track_state_to_numpy(
+        tckpt.load_state(path, dtype=dtype, device="cpu"))
+    want = convert.track_state_to_numpy(
+        tckpt.load_session(path, dtype=dtype, device="cpu")[0])
+    ref = jckpt.load_state(path, dtype=dtype)
+    for k in want:
+        assert got[k].dtype == want[k].dtype, k
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+        np.testing.assert_array_equal(got[k], np.asarray(getattr(ref, k)),
+                                      err_msg=k)
+    assert int(got["frame"]) == CUT
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            tckpt.load_state(path)

@@ -779,3 +779,99 @@ def test_pool_matches_online_sessions_on_card():
             np.testing.assert_allclose(got[sid]["pose"], want[sid]["pose"],
                                        rtol=0, atol=1e-6)
     assert sc.score_partials_batched.launches - before == 6
+
+
+# --- refinement, the stage timer and the CLI on the card --------------------
+
+def test_refine_card_matches_cpu_f64():
+    """The pose-graph solve on the card against the CPU in f64 (cuSOLVER's
+    and LAPACK's LU differ in the last ulps): within 1e-9 px/deg,
+    sequential and segment-parallel, lost frames included."""
+    _need_card()
+    from lsdtpu_torch.refine import pose_graph
+    rng = np.random.default_rng(5)
+    F = 96
+    t = np.arange(F)
+    truth = np.stack([10 + 2.0 * t, 5 + 1.5 * t, 3.7 * t - 170], 1)
+    u = np.diff(truth, axis=0, prepend=truth[:1])
+    u[0] = 0
+    meas = truth + rng.normal(0, 1.5, (F, 3))
+    meas[:, 2] = (meas[:, 2] + 180) % 360 - 180
+    scores = rng.uniform(0.05, 1.0, F)
+    scores[20:31] = np.inf
+    meas[20:31] = np.nan
+    for P in (1, 8):
+        if P == 1:
+            fn = pose_graph.refine_trajectory
+        else:
+            fn = lambda *a, **k: pose_graph.refine_trajectory_distributed(
+                *a, n_segments=P, **k)
+        a, ia = fn(meas, scores, u, device="cuda")
+        b, ib = fn(meas, scores, u, device="cpu")
+        assert a.is_cuda and a.dtype == torch.float64
+        a, b = a.cpu().numpy(), b.numpy()
+        np.testing.assert_allclose(a[:, :2], b[:, :2], rtol=0, atol=1e-9)
+        d = (a[:, 2] - b[:, 2] + 180) % 360 - 180
+        assert np.abs(d).max() <= 1e-9, (P, np.abs(d).max())
+        assert int(ia["n_measured"]) == int(ib["n_measured"]) == F - 11
+
+
+def test_stage_timings_on_card():
+    """Every stage timed on the card; the score stage launches the
+    CalcScore kernel once a repeat."""
+    _need_card()
+    from lsdtpu_torch.ops import score as sc
+    from lsdtpu_torch.runtime import loop, trace
+    from torch_parity import scene
+    ds, art = scene(1)
+    ctx = loop.make_map_context(art.lines_info, art.map_cache,
+                                ds.param.resol, ds.param.ori_x,
+                                ds.param.ori_y, device="cuda")
+    fr = loop.stack_frames(ds)
+    before = sc.score_partials.launches
+    st = trace.stage_timings(tuple(fr[k][3] for k in loop._FRAME_KEYS), ctx,
+                             repeats=3, device="cuda")
+    assert sorted(st) == ["candidates_ms", "featurize_ms", "fuse_ms",
+                          "score_ms", "ukf_ms"]
+    assert all(np.isfinite(v) and v > 0 for v in st.values()), st
+    assert sc.score_partials.launches - before == 4
+
+
+def test_cli_run_on_card(tmp_path, capsys):
+    """`lsdtpu-torch run` on the card (the default device): 10 records,
+    one CalcScore launch a frame, the map prep's NFA and FIFO kernels
+    launched, and the records equal the library rollout on the same
+    artifacts."""
+    _need_card()
+    import json
+    from lsdtpu_torch import cli
+    from lsdtpu_torch.io import load_dataset
+    from lsdtpu_torch.ops import grow, nfa
+    from lsdtpu_torch.ops import score as sc
+    from lsdtpu_torch.runtime import loop
+    from lsdtpu_torch.runtime.artifacts import prepare_map_cached
+    from lsdtpu_torch.runtime.online import to_host
+    from torch_parity import write_dataset
+    data = tmp_path / "data"
+    data.mkdir()
+    write_dataset(data, 1, F=10)
+    ds = load_dataset(str(data))
+    cache_dir = str(tmp_path / "cache")
+    for w in (sc.score_partials, nfa.rect_counts, grow.grow_fifo):
+        w.launches = 0
+    assert cli.main(["run", "--data", str(data), "--cache-dir",
+                     cache_dir, "--frames", "10"]) == 0
+    recs = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()]
+    assert len(recs) == 10
+    assert sc.score_partials.launches == 10
+    assert nfa.rect_counts.launches > 0 and grow.grow_fifo.launches > 0
+    lines, cache = prepare_map_cached(ds.map_value, ds.param.resol,
+                                      cache_dir=cache_dir, device="cuda",
+                                      growth="fifo")
+    ctx = loop.make_map_context(lines, cache, ds.param.resol,
+                                ds.param.ori_x, ds.param.ori_y,
+                                device="cuda")
+    out = to_host(loop.run_sequence(loop.stack_frames(ds), ctx))
+    for f, rec in enumerate(recs):
+        assert rec["pose"] == [round(float(v), 3) for v in out["pose"][f]]
+        assert rec["n_candidates"] == int(out["n_candidates"][f])

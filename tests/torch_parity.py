@@ -210,6 +210,32 @@ def batch_contexts(lanes=LANES, dtype=np.float64, cfgs=None, **kw):
                                **kw))
 
 
+def write_dataset(root, seed, suffix="", F=4, **scene_kw):
+    """Write the port's synthetic scene (seed, F frames; synth_dataset's
+    keyword arguments) to the directory ``root`` (a pathlib.Path) in the
+    reference's text formats: mapParam, mapValue, Odom, Lidar (360 rows a
+    frame, inf where a ray hit nothing), realPos (the odometry positions
+    of the frames) and recored_Odom (every frame a keyframe).  Returns
+    the Dataset."""
+    ds = tsynth.synth_dataset(seed, F=F, **scene_kw).dataset
+    p = ds.param
+    (root / f"mapParam{suffix}.txt").write_text(
+        f"{p.col} {p.row} {p.resol} {p.ori_x} {p.ori_y}\n")
+    np.savetxt(root / f"mapValue{suffix}.txt", ds.map_value, fmt="%d")
+    np.savetxt(root / "Odom.txt", ds.odom[1:], fmt="%.9f")
+    rows = []
+    for fr in ds.frames:
+        full = np.full((360, 2), np.inf)
+        full[:len(fr)] = fr
+        full[len(fr):, 1] = 0.0
+        rows.append(full)
+    np.savetxt(root / "Lidar.txt", np.concatenate(rows), fmt="%.9f")
+    np.savetxt(root / "realPos.txt", ds.odom[1:, :2], fmt="%.6f",
+               delimiter="\t")
+    np.savetxt(root / "recored_Odom.txt", np.arange(1, F + 1), fmt="%d")
+    return ds
+
+
 def solo_context(ds, art, dtype=np.float64, **kw):
     """The port's MapContext of one lane's scene alone, on the CPU."""
     p = ds.param
