@@ -105,7 +105,26 @@ its own line; any failure exits non-zero before the last line:
      cli_serve (two robots), cli_viz (the PNGs open); then
      `python -m lsdtpu_torch.cli run` in a process of its own; every
      kernel's launches counted from 0 around each command;
- 13. a JSON line of the kernels (with their launches on each path), the
+ 13. the multi-device runners (slice 8): multi_world1 - run_batch_sharded
+     (tp) and run_batch_sharded_mapblocks (mp) over one rank (NCCL) on
+     two f64 lanes of the two maps, each bitwise run_batch, and the pod
+     mesh of one host; multi_prep - the block-built distance field and the
+     slab-sharded LSD prologue (4 blocks) bitwise their single-card
+     counterparts; the lane-batched CalcScore over a row block (row0 > 0,
+     f32 and f64) and, in 6, the NFA kernel on row blocks (row0 > 0, a
+     block crossing n_rows) against their plain versions, timed;
+     multi_two_ranks - two ranks spawned on the one card over gloo
+     (python3 chip_smoke.py --multi-rank ...; a join timeout): tp = 2 and
+     mp = 2 rollouts (poses within 1e-9 px of run_sequence, one launch a
+     frame a rank, the mp ranks' row0), the pipelined rollout (bitwise
+     run_sequence), a 2 x 8 slot pool against a 16-slot pool, the sharded
+     wave LSD (f32, f64) against the unsharded one, with each rank's NFA
+     launches equal to its count calls; multi_temporal - the whole
+     sequence as 8 and 16 segments (the lanes of one rollout) against
+     rollout_f32: tracked frames, position error, one launch a frame,
+     scans/s (median of 3), the reconciled ATE; cli_sharded - prepare-map
+     --mapprep tpu-sharded and batch --concat --temporal 8;
+ 14. a JSON line of the kernels (with their launches on each path), the
      nvidia-smi name/power line, and the last line
      {"ok": true, "device": {...}}.
 """
@@ -444,16 +463,17 @@ OPS_PER_COLUMN = 20
 
 def record_rect_counts(run):
     """Run ``run()`` with every rect_counts call recorded as (deg_map,
-    scalars, all_pix, ali_pix); returns (result, calls)."""
+    scalars, all_pix, ali_pix, (row0, n_rows) as given); returns (result,
+    calls)."""
     import types
     from lsdtpu_torch.mapprep import nfa as mnfa
     onfa = mnfa.onfa
     calls = []
 
-    def rec(deg_map, scalars):
-        out = onfa.rect_counts(deg_map, scalars)
+    def rec(deg_map, scalars, *block):
+        out = onfa.rect_counts(deg_map, scalars, *block)
         calls.append((deg_map, scalars.clone(), out[0].clone(),
-                      out[1].clone()))
+                      out[1].clone(), block))
         return out
 
     # map prep reaches the kernel through mapprep/nfa.py's module
@@ -480,17 +500,19 @@ def match_lines(a, b, tol):
     return n
 
 
-def nfa_case(name, deg_map, scalars, reps, card, floor_ms):
-    """The NFA kernel against its plain version on one recorded batch:
+def nfa_case(name, deg_map, scalars, reps, card, floor_ms, row0=0,
+             n_rows=None):
+    """The NFA kernel against its plain version on one recorded batch
+    (or on rows [row0, row0 + H) of a field of true height n_rows):
     counts, times, bound."""
     import torch
     from lsdtpu_torch.ops import nfa as onfa
-    got = onfa.rect_counts(deg_map, scalars)
+    got = onfa.rect_counts(deg_map, scalars, row0, n_rows)
     torch.cuda.synchronize()
-    want = onfa.rect_counts_reference(deg_map, scalars)
+    want = onfa.rect_counts_reference(deg_map, scalars, row0, n_rows)
     if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
         fail(f"nfa {name}: kernel counts differ from the plain version")
-    inside = onfa.rect_inside(deg_map, scalars)
+    inside = onfa.rect_inside(deg_map, scalars, row0, n_rows)
     R = scalars.shape[0]
     pairs = int(inside.sum())
     distinct = int(inside.any(0).sum())
@@ -503,17 +525,20 @@ def nfa_case(name, deg_map, scalars, reps, card, floor_ms):
     out = dict(name=name, rects=R, covered_pairs=pairs,
                distinct_pixels=distinct, max_abs_err=0.0,
                bound_ms=max(t_bytes, t_ops),
-               bound_by="bytes" if t_bytes >= t_ops else "operations")
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               row0=row0, n_rows="null" if n_rows is None else n_rows)
     dev_ms = profiled_ms(f"nfa {name}",
-                         lambda: onfa.rect_counts(deg_map, scalars), got,
+                         lambda: onfa.rect_counts(deg_map, scalars, row0,
+                                                  n_rows), got,
                          "rect_counts_kernel")
     out["repeats_bitwise"] = 50
-    out["kernel_ms"] = time_cuda(lambda: onfa.rect_counts(deg_map, scalars),
-                                 reps)
+    out["kernel_ms"] = time_cuda(lambda: onfa.rect_counts(
+        deg_map, scalars, row0, n_rows), reps)
     out["ms"] = out["kernel_ms"] if dev_ms is None else dev_ms
     out["ms_source"] = "cuda events" if dev_ms is None else "profiler"
     out["plain_ms"] = time_cuda(
-        lambda: onfa.rect_counts_reference(deg_map, scalars), 20)
+        lambda: onfa.rect_counts_reference(deg_map, scalars, row0, n_rows),
+        20)
     out["floor_ms"] = floor_ms
     phase("nfa_kernel_check", **out, bound_us=out["bound_ms"] * 1e3,
           card=card)
@@ -538,6 +563,41 @@ def nfa_cases(calls, card, floor_ms):
         out.append(nfa_case(label, calls[i][0], calls[i][1], 200, card,
                             floor_ms))
     return out
+
+
+def nfa_row_cases(calls, card, floor_ms):
+    """nfa_case on row blocks of a recorded launch's field (the most
+    covered one whose rectangles clear row 0), cut through its
+    rectangles' rows (lo..hi): rows [mid, H) (row0 > 0, as a rank's
+    block), and rows from lo, twice the rectangles' height (zero rows
+    past the field), of a field whose true height n_rows ends inside
+    them - the sharded map prep's launches."""
+    import torch
+    from lsdtpu_torch.ops import nfa as onfa
+    def rows(c):
+        """The rows its rectangles cover, or None."""
+        ys = torch.nonzero(onfa.rect_inside(c[0], c[1]).any(0).any(1))
+        return (int(ys.min()), int(ys.max())) if len(ys) else None
+
+    # the most covered launch whose rectangles lie clear of the top row,
+    # so that the blocks start at row0 > 0
+    inner = [(int(c[2].sum()), i) for i, c in enumerate(calls)
+             if (rows(c) or (0, 0))[0] > 0]
+    most = max(inner)[1]
+    deg_map, scalars = calls[most][0], calls[most][1]
+    H, W = deg_map.shape
+    lo, hi = rows(calls[most])
+    mid = (lo + hi) // 2
+    n_rows = mid + (hi - mid) // 2 + 1
+    rows = 2 * (hi - lo + 1)
+    cross = torch.zeros((rows, W), dtype=deg_map.dtype,
+                        device=deg_map.device)
+    take = deg_map[lo:lo + rows]
+    cross[:take.shape[0]] = take
+    return [nfa_case("row_block_from_mid", deg_map[mid:].contiguous(),
+                     scalars, 200, card, floor_ms, row0=mid, n_rows=H),
+            nfa_case("row_block_crossing_n_rows", cross, scalars, 200, card,
+                     floor_ms, row0=lo, n_rows=n_rows)]
 
 
 def degenerate_rects(deg_map):
@@ -1830,6 +1890,614 @@ def cli_phases(scene, device, smi, kind):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+MULTI_FRAMES = 100       # multi_world1: frames a lane (2 lanes, f64)
+RANK_FRAMES = 60         # multi_two_ranks: frames of the tp/mp/pipeline runs
+RANK_POOL_TICKS = 5      # multi_two_ranks: ticks of the 2 x 8 slot pool
+RANK_TIMEOUT_S = 600     # multi_two_ranks: the spawned group's join timeout
+PARALLEL_FRAMES = 12     # tests/test_runtime_parallel.py's NF (tier 1e-9 px)
+# multi_two_ranks: the tp/mp poses' tier over RANK_FRAMES.  On the CPU
+# over gloo the same 60 frames drift 9.6e-10 px (tp) and 8.4e-10 px (mp)
+# from run_sequence (scripts/torch_sharded_drift.py), 5.7e-10 and
+# 8.4e-10 px in the first 12: ulps of another summation order reach
+# ~1e-9 px on this scene within 12 frames; a decade above that
+RANK_TIER_PX = 1e-8
+# multi_temporal: (S, warmup): the reference's default warmup of 24 at
+# S = 8 (segments of 35 frames); 12 at S = 16 (segments of 18 frames)
+TEMPORAL_CASES = ((8, 24), (16, 12))
+MAX_ERR_PX = 6.0         # tests/test_temporal.py's documented tolerance
+MEAN_ERR_PX = 1.0
+LSD_TIER = dict(rtol=1e-4, atol=1e-3)   # tests/test_lsd_sharded.py
+
+
+def lsd_scene():
+    """The smaller map of the sharded LSD check (245x360 cells at 0.05 m,
+    a sixteenth of data1's cells; 31 lines): each host read of the
+    walk costs one to three collectives over gloo."""
+    from lsdtpu_torch.io import synth
+    return synth.synth_dataset(1, F=2, H=245, W=360, resol=0.05, rmax=13.0,
+                               n_walls=20, clear_m=1.5, wall_scale=1.0)
+
+
+def same_outputs(a, b):
+    """Two output dicts equal bit for bit (NaN where NaN)."""
+    import torch
+    for k in b:
+        x, y = torch.as_tensor(a[k]), torch.as_tensor(b[k])
+        if x.shape != y.shape or not torch.equal(x.isnan() if
+                                                 x.is_floating_point() else x,
+                                                 y.isnan() if
+                                                 y.is_floating_point() else y):
+            return k
+        if x.is_floating_point() and not torch.equal(x.nan_to_num(),
+                                                     y.nan_to_num()):
+            return k
+    return None
+
+
+def counted(fn):
+    """(fn(), {kernel: launches}, seconds) with every wrapper's count set
+    to 0 just before and read just after."""
+    import torch
+    wrappers = _wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    res = fn()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return res, {k: w.launches for k, w in wrappers.items()}, \
+        time.perf_counter() - t0
+
+
+def multi_world1(scene, lines, cache64, scene_p, pillar, cfg, device, smi):
+    """multi_world1: the sharded rollouts over one rank (this process,
+    NCCL) on two lanes of the two maps, each bitwise run_batch; the pod
+    mesh of one host.  Returns {path: launches}."""
+    import torch.distributed as dist
+    from lsdtpu_torch.runtime import batch, distributed, shard
+    dss = [lane_dataset(scene.dataset, 0, MULTI_FRAMES),
+           lane_dataset(scene_p.dataset, 0, MULTI_FRAMES)]
+    frames, ctxs, lens = batch.stack_batch(
+        dss, [(lines, cache64), pillar], cfg, dtype=np.float64,
+        device=device)
+    distributed.ensure_group(device)
+    want, l_ref, s_ref = counted(lambda: batch.run_batch(frames, ctxs, cfg,
+                                                         device=device))
+    paths = {}
+    for tag, run, mesh in (
+            ("multi_world1_tp", shard.run_batch_sharded,
+             shard.make_mesh(device=device)),
+            ("multi_world1_mp", shard.run_batch_sharded_mapblocks,
+             shard.make_mesh_mp(device=device))):
+        got, launches, secs = counted(lambda: run(frames, ctxs, mesh, cfg,
+                                                  device=device))
+        bad = same_outputs(got, want)
+        if bad is not None:
+            fail(f"{tag}: {bad} differs from run_batch on one rank")
+        if launches["score_partials_batched"] != MULTI_FRAMES:
+            fail(f"{tag}: launches {launches}")
+        paths[tag] = launches
+        phase(tag, card=repr(smi), lanes=len(dss), frames=MULTI_FRAMES,
+              mesh=repr(tuple(mesh.shape)), backend=repr(dist.get_backend()),
+              bitwise_run_batch=True, seconds=round(secs, 2),
+              run_batch_seconds=round(s_ref, 2), launches=repr(launches))
+    pod = distributed.make_pod_mesh(device=device)
+    if tuple(pod.shape) != (1, 1) or pod.mesh_dim_names != ("dp", "tp"):
+        fail(f"multi_world1: pod mesh {pod}")
+    phase("multi_world1_pod", mesh=repr(tuple(pod.shape)),
+          names=repr(pod.mesh_dim_names))
+    return paths
+
+
+def multi_prep(scene, cache64, device, smi):
+    """multi_prep: the block-built distance field and the slab-sharded
+    LSD prologue over one rank with 4 blocks, bitwise their single-card
+    counterparts."""
+    import math
+    import torch
+    from lsdtpu_torch.mapprep import distance_sharded, lsd_sharded
+    from lsdtpu_torch.mapprep.gaussian import gaussian_sampler
+    from lsdtpu_torch.mapprep.gradient import gradient_field
+    grid = scene.dataset.map_value
+    p = scene.dataset.param
+    t0 = time.perf_counter()
+    field = distance_sharded.create_map_cache_sharded(
+        grid, p.resol, 1.0, blocks_per_device=4, device=device)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    if not torch.equal(field, cache64):
+        fail("multi_prep: the block-built field differs from "
+             "create_map_cache")
+    deg_thre = 22.5 / 180.0 * math.pi
+    for dt in (torch.float32, torch.float64):
+        rm, *got, _shape = lsd_sharded.prologue_sharded(
+            grid, 0.3, 0.6, deg_thre, blocks_per_device=4, dtype=dt,
+            device=device)
+        g = torch.from_numpy(rm).to(device, dt)
+        want = gradient_field(gaussian_sampler(g, 0.3, 0.6), deg_thre)
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            fail(f"multi_prep: the sharded prologue ({dt}) differs from "
+                 "the unsharded one")
+    phase("multi_prep", card=repr(smi), blocks=4, field_bitwise=True,
+          prologue_bitwise="f32, f64", field_seconds=round(secs, 3))
+
+
+def row_block_case(name, scene, lines, cache64, cfg, device, card, floor_ms,
+                   dtype):
+    """The lane-batched CalcScore launch of an mp rank: two lanes (the
+    relock frame, a tracking frame), unpruned, over the rows
+    [row0, row0 + H/2) of the field (rank 1 of mp = 2): against its plain
+    version, the two blocks' counts adding up to the whole field's,
+    device ms, plain ms, bound and floor."""
+    import torch
+    from lsdtpu_torch.ops import score as sc
+    from lsdtpu_torch.runtime import batch, loop
+    p = scene.dataset.param
+    ctx = loop.make_map_context(lines, cache64, p.resol, p.ori_x, p.ori_y,
+                                dtype=dtype, device=device)
+    lanes = [lane_frame_args(scene, ctx, cfg, device, f, False)
+             for f in (0, 1)]
+    canvas = batch.batch_context([(lines, cache64)] * 2,
+                                 [(p.resol, p.ori_x, p.ori_y)] * 2, cfg,
+                                 dtype=dtype, device=device)
+    H = canvas.cache.shape[1]
+    bh = -(-H // 2)
+    z, pen = cfg.map.z_occ_max_dis, cfg.match.max_dist_penalty
+    feats, px, py = (torch.stack([ln[i] for ln in lanes]).contiguous()
+                     for i in (0, 3, 4))
+    n, n_pix = (torch.cat([ln[i] for ln in lanes]).contiguous()
+                for i in (2, 5))
+    blocks = [canvas.cache[:, r:r + bh].contiguous() for r in (0, bh)]
+    args = [(feats, None, n, px, py, n_pix, blk, canvas.rows, canvas.cols,
+             z, pen, z) for blk in blocks]
+    got = [sc.score_partials_batched(*a, row0=r) for a, r in
+           zip(args, (0, bh))]
+    torch.cuda.synchronize()
+    want = sc.score_partials_batched_reference(*args[1], row0=bh)
+    whole = sc.score_partials_batched(feats, None, n, px, py, n_pix,
+                                      canvas.cache, canvas.rows, canvas.cols,
+                                      z, pen, z)
+    for i in (1, 3):
+        if not torch.equal(got[1][i], want[i]) or \
+                not torch.equal(got[0][i] + got[1][i], whole[i]):
+            fail(f"{name}: row-block counts differ from the plain version "
+                 "or do not add up to the whole field's")
+    err = max(float((got[1][i].double() - want[i].double()).abs().max())
+              for i in (0, 2))
+    if not all(torch.allclose(got[1][i].double(), want[i].double(),
+                              rtol=RTOL, atol=ATOL) for i in (0, 2)):
+        fail(f"{name}: row-block sums differ from the plain version "
+             f"(max abs err {err})")
+    work = [lane_work(feats[b], None, n[b], px[b], py[b], n_pix[b],
+                      blocks[1][b], bh, 0, int(canvas.rows[b]),
+                      int(canvas.cols[b])) for b in range(2)]
+    bound_ms, bound_by = bound(sum(w[0] for w in work),
+                               sum(w[1] for w in work), feats.dtype)
+    out = dict(name=name, lanes=2, row0=bh, block_rows=bh, dtype=str(
+        feats.dtype).split(".")[1], pruned=False,
+        live=[int(v) for v in n], pairs=sum(w[1] for w in work),
+        max_abs_err=err, bound_ms=bound_ms, bound_by=bound_by)
+    dev_ms = profiled_ms(name, lambda: sc.score_partials_batched(
+        *args[1], row0=bh), got[1], "score_partials_kernel")
+    out["repeats_bitwise"] = 50
+    out["ms"] = dev_ms if dev_ms is not None else time_cuda(
+        lambda: sc.score_partials_batched(*args[1], row0=bh), 200)
+    out["ms_source"] = "cuda events" if dev_ms is None else "profiler"
+    out["plain_ms"] = time_cuda(
+        lambda: sc.score_partials_batched_reference(*args[1], row0=bh), 3)
+    out["floor_ms"] = floor_ms
+    phase("batch_kernel_check", **out, card=card)
+    return out
+
+
+def to_np(x):
+    """A tensor (on any device) or an array as a numpy array."""
+    return x.cpu().numpy() if hasattr(x, "cpu") else np.asarray(x)
+
+
+def rank_inputs(scene, lines, cache64, scene_p, pillar, cfg):
+    """What multi_two_ranks sends every rank (numpy, pickled)."""
+    from lsdtpu_torch.runtime import loop
+    ds = scene.dataset
+    p = ds.param
+    fr = loop.stack_frames(ds, dtype=np.float64, max_frames=RANK_FRAMES)
+    H, W = ds.map_value.shape
+    pp = scene_p.dataset.param
+    maps = [(to_np(lines), to_np(cache64), p.resol, p.ori_x, p.ori_y),
+            (to_np(pillar[0]), to_np(pillar[1]).astype(np.float64),
+             pp.resol, pp.ori_x, pp.ori_y)]
+    dss = [scene.dataset, scene_p.dataset]
+    robots = {f"r{r}": (r % 2, 17 * r) for r in range(POOL_CAPACITY)}
+    ticks = []
+    for t in range(RANK_POOL_TICKS):
+        tick = {}
+        for sid, (m, off) in robots.items():
+            d = dss[m]
+            f = off + t
+            tick[sid] = (d.frames[f][:, 0], d.frames[f][:, 1], d.odom[f + 1])
+        ticks.append(tick)
+    return dict(frames=fr, map=maps[0], maps=maps, robots=robots,
+                ticks=ticks, canvas=(H, W), grid=lsd_scene().dataset.map_value)
+
+
+def pool_ticks(inp, cfg, device, mesh=None):
+    """The robots of ``inp`` through a pool of one slot each (f64)."""
+    from lsdtpu_torch.runtime.serving import SessionPool
+    pool = SessionPool(len(inp["robots"]), inp["canvas"], cfg,
+                       dtype=np.float64, device=device, mesh=mesh)
+    for sid, (m, _off) in inp["robots"].items():
+        pool.open_session(sid, *inp["maps"][m])
+    out = []
+    for tick in inp["ticks"]:
+        for sid, scan in tick.items():
+            pool.submit_scan(sid, *scan)
+        out.append(pool.step())
+    return out
+
+
+def multi_rank(tmp, rank, world):
+    """One spawned rank of multi_two_ranks (python3 chip_smoke.py
+    --multi-rank DIR RANK WORLD): joins a gloo group through a file store
+    in DIR on the parent's device (card 0), runs the tp = 2 and mp = 2
+    rollouts, the pipelined rollout, the 2 x 8 slot pool and the sharded
+    LSD (f32, f64), each with every kernel's launches counted, and
+    pickles the results to DIR."""
+    import pickle
+    import torch
+    import torch.distributed as dist
+    from lsdtpu_torch.config import DEFAULT
+    from lsdtpu_torch.mapprep import lsd_sharded
+    from lsdtpu_torch.mapprep.stats import MapPrepStats
+    from lsdtpu_torch.match import associate as assoc
+    from lsdtpu_torch.ops import nfa as onfa
+    from lsdtpu_torch.runtime import (batch, distributed, loop, pipeline,
+                                      shard)
+    from lsdtpu_torch.runtime.serving import make_pool_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with open(os.path.join(tmp, "inputs.pkl"), "rb") as f:
+        inp = pickle.load(f)
+    dev = torch.device(inp["device"])
+    backend = distributed.initialize(
+        init_method="file://" + os.path.join(tmp, "store"), world_size=world,
+        rank=rank, backend="gloo", device=dev, timeout_s=300)
+    cfg = DEFAULT
+    ctx = loop.make_map_context(*inp["map"], dtype=np.float64, device=dev)
+    res = {"backend": backend}
+    # the map-line (tp) and row-block (mp) rollouts of one lane; the mp
+    # launches record the row0 they were given
+    row0s = []
+    batched = assoc.score_partials_batched
+
+    def recording(*a, row0=0, **kw):
+        row0s.append(int(row0))
+        return batched(*a, row0=row0, **kw)
+
+    frames = {k: v[None] for k, v in inp["frames"].items()}
+    lines, cache, *params = inp["map"]
+    ctxs = batch.batch_context([(lines, cache)], [params], cfg,
+                               dtype=np.float64, device="cpu")
+    for tag, make, run in (("tp2", shard.make_mesh, shard.run_batch_sharded),
+                           ("mp2", shard.make_mesh_mp,
+                            shard.run_batch_sharded_mapblocks)):
+        mesh = make(dp=1, device=dev)
+        assoc.score_partials_batched = recording
+        try:
+            outs, launches, secs = counted(lambda: run(frames, ctxs, mesh,
+                                                       cfg, device=dev))
+        finally:
+            assoc.score_partials_batched = batched
+        res[tag] = dict(outs={k: v.cpu().numpy() for k, v in outs.items()},
+                        launches=launches, seconds=secs,
+                        row0=sorted(set(row0s)))
+        row0s.clear()
+    mesh = pipeline.make_mesh_pp(device=dev)
+    outs, launches, secs = counted(lambda: pipeline.run_sequence_pipelined(
+        inp["frames"], ctx, mesh, cfg, device=dev))
+    res["pipeline"] = dict(outs={k: v.cpu().numpy() for k, v in
+                                 outs.items()}, launches=launches,
+                           seconds=secs)
+    ticks, launches, secs = counted(lambda: pool_ticks(
+        inp, cfg, dev, make_pool_mesh(device=dev)))
+    res["pool"] = dict(ticks=ticks, launches=launches, seconds=secs)
+    for dt in (torch.float32, torch.float64):
+        st = MapPrepStats()
+        ((lines, mask, n, _rm), calls), launches, secs = counted(
+            lambda: record_rect_counts(
+                lambda: lsd_sharded.line_segment_detector_sharded(
+                    inp["grid"], dtype=dt, device=dev, stats=st)))
+        # every NFA launch of this rank, on its row block, against the
+        # plain version on the same inputs (after the counted run)
+        differ = 0
+        for deg_map, scal, all_pix, ali_pix, block in calls:
+            want = onfa.rect_counts_reference(deg_map, scal, *block)
+            differ += not (torch.equal(all_pix, want[0])
+                           and torch.equal(ali_pix, want[1]))
+        res[f"lsd_{str(dt)[6:]}"] = dict(
+            lines=lines.cpu().numpy(), mask=mask.cpu().numpy(), n=n,
+            nfa_calls=st.nfa_calls, launches=launches, seconds=secs,
+            nfa_checked=len(calls), nfa_differ=differ,
+            nfa_blocks=sorted({(int(b[0]), int(b[1]), d.shape[0])
+                               for d, _s, _a, _l, b in calls}))
+    with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(res, f)
+    dist.destroy_process_group()
+
+
+def multi_two_ranks(scene, lines, cache64, scene_p, pillar, cfg, device,
+                    smi):
+    """multi_two_ranks: two spawned ranks on card 0 over gloo (NCCL
+    refuses two ranks on one card), against this process's single-rank
+    references computed first (so the ranks' times are their own).
+    Returns {path: launches summed over the ranks}."""
+    import pickle
+    import torch
+    from lsdtpu_torch.mapprep import lsd
+    from lsdtpu_torch.mapprep.stats import MapPrepStats
+    from lsdtpu_torch.runtime import loop
+    inp = rank_inputs(scene, lines, cache64, scene_p, pillar, cfg)
+    inp["device"] = device.type          # the ranks' device: card 0
+    ctx = loop.make_map_context(*inp["map"], dtype=np.float64, device=device)
+    seq, _l, seq_s = counted(lambda: loop.run_sequence(inp["frames"], ctx,
+                                                       cfg, device=device))
+    seq = {k: v.cpu().numpy() for k, v in seq.items()}
+    pool_want, _l, pool_s = counted(lambda: pool_ticks(inp, cfg, device))
+    lsd_want = {}
+    for dt in (torch.float32, torch.float64):
+        st = MapPrepStats()
+        (l_, m_, n_, _r), launches, secs = counted(
+            lambda: lsd.line_segment_detector(inp["grid"], dtype=dt,
+                                              device=device, stats=st))
+        lsd_want[str(dt)[6:]] = (l_.cpu().numpy(), m_.cpu().numpy(), n_,
+                                 secs, st.nfa_calls)
+    tmp = tempfile.mkdtemp(prefix="lsdtpu_torch_ranks_")
+    try:
+        with open(os.path.join(tmp, "inputs.pkl"), "wb") as f:
+            pickle.dump(inp, f)
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--multi-rank", tmp,
+             str(r), "2"], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True) for r in range(2)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=max(
+                    1.0, RANK_TIMEOUT_S - (time.perf_counter() - t0)))[0])
+        except subprocess.TimeoutExpired:
+            for p in procs:
+                p.kill()
+                p.communicate()
+            fail(f"multi_two_ranks: the ranks outlived {RANK_TIMEOUT_S} s")
+        group_s = time.perf_counter() - t0
+        for r, p in enumerate(procs):
+            if p.returncode != 0:
+                fail(f"multi_two_ranks: rank {r} exited {p.returncode}: "
+                     f"{logs[r][-3000:]}")
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
+                ranks.append(pickle.load(f))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    F = RANK_FRAMES
+    paths = {}
+    for tag in ("tp2", "mp2"):
+        d = np.zeros(F)
+        for r, res in enumerate(ranks):
+            got = res[tag]["outs"]
+            if not np.array_equal(got["n_candidates"][0],
+                                  seq["n_candidates"]):
+                fail(f"multi_two_ranks {tag}: rank {r} n_candidates differ "
+                     "from run_sequence")
+            d = np.maximum(d, np.abs(got["pose"][0] - seq["pose"]).max(-1))
+            if res[tag]["launches"]["score_partials_batched"] != F:
+                fail(f"multi_two_ranks {tag}: rank {r} launches "
+                     f"{res[tag]['launches']} in {F} frames")
+        # the rollout is causal, so its first 12 frames are a 12-frame run
+        # (tests/test_runtime_parallel.py's length), printed with the
+        # first frame that differs at all
+        worst, first12 = float(d.max()), float(d[:PARALLEL_FRAMES].max())
+        moved = np.nonzero(d)[0]
+        row0 = [res[tag]["row0"] for res in ranks]
+        if tag == "mp2" and not (row0[0] == [0] and row0[1][0] > 0):
+            fail(f"multi_two_ranks mp2: the ranks launched with row0 {row0}")
+        paths[f"multi_two_ranks_{tag}"] = {
+            k: sum(res[tag]["launches"][k] for res in ranks)
+            for k in ranks[0][tag]["launches"]}
+        phase(f"multi_two_ranks_{tag}", card=repr(smi),
+              backend=repr(ranks[0]["backend"]), frames=F,
+              max_pose_diff_px=worst, n_candidates="identical",
+              max_pose_diff_px_first_12=first12,
+              first_differing_frame=int(moved[0]) if len(moved) else -1,
+              diff_there_px=float(d[moved[0]]) if len(moved) else 0.0,
+              tier_px=RANK_TIER_PX, row0_by_rank=repr(row0),
+              launches_by_rank=repr([res[tag]["launches"] for res in ranks]),
+              seconds_by_rank=repr([round(res[tag]["seconds"], 2)
+                                    for res in ranks]),
+              run_sequence_seconds=round(seq_s, 2))
+        # RANK_TIER_PX (module constants): the psum adds the ranks'
+        # partials in another order than the whole-field sum, and the
+        # UKF chain carries the ulps
+        if not worst <= RANK_TIER_PX:
+            fail(f"multi_two_ranks {tag}: poses {worst} px from "
+                 f"run_sequence in {F} frames")
+    for r, res in enumerate(ranks):
+        got = res["pipeline"]["outs"]
+        bad = same_outputs(got, seq)
+        if bad is not None:
+            fail(f"multi_two_ranks pipeline: rank {r}'s {bad} differs from "
+                 "run_sequence")
+    paths["multi_two_ranks_pipeline"] = {
+        k: sum(res["pipeline"]["launches"][k] for res in ranks)
+        for k in ranks[0]["pipeline"]["launches"]}
+    if paths["multi_two_ranks_pipeline"]["score_partials"] != F:
+        fail(f"multi_two_ranks pipeline: launches "
+             f"{paths['multi_two_ranks_pipeline']}")
+    phase("multi_two_ranks_pipeline", card=repr(smi), frames=F,
+          bitwise_run_sequence=True,
+          launches_by_rank=repr([res["pipeline"]["launches"]
+                                 for res in ranks]),
+          seconds_by_rank=repr([round(res["pipeline"]["seconds"], 2)
+                                for res in ranks]))
+    worst = 0.0
+    for r, res in enumerate(ranks):
+        for g, w in zip(res["pool"]["ticks"], pool_want):
+            if sorted(g) != sorted(w):
+                fail(f"multi_two_ranks pool: rank {r} returned {sorted(g)}")
+            for sid in w:
+                if g[sid]["n_candidates"] != w[sid]["n_candidates"]:
+                    fail(f"multi_two_ranks pool: {sid} decides otherwise")
+                if not np.isnan(w[sid]["pose"]).any():
+                    worst = max(worst, float(np.abs(g[sid]["pose"]
+                                                    - w[sid]["pose"]).max()))
+    if not worst <= 1e-9:
+        fail(f"multi_two_ranks pool: poses {worst} px from the 16-slot pool")
+    paths["multi_two_ranks_pool"] = {
+        k: sum(res["pool"]["launches"][k] for res in ranks)
+        for k in ranks[0]["pool"]["launches"]}
+    phase("multi_two_ranks_pool", card=repr(smi),
+          slots=f"'2 x {len(inp['robots']) // 2}'",
+          ticks=RANK_POOL_TICKS, max_pose_diff_px=worst,
+          launches_by_rank=repr([res["pool"]["launches"] for res in ranks]),
+          seconds_by_rank=repr([round(res["pool"]["seconds"], 2)
+                                for res in ranks]),
+          one_rank_seconds=round(pool_s, 2))
+    for dt, (wl, wm, wn, w_s, w_calls) in lsd_want.items():
+        key = f"lsd_{dt}"
+        for r, res in enumerate(ranks):
+            g = res[key]
+            if g["n"] != wn or not np.array_equal(g["mask"], wm) or \
+                    not np.allclose(g["lines"][:wn, 4:8], wl[:wn, 4:8],
+                                    **LSD_TIER):
+                fail(f"multi_two_ranks {key}: rank {r}'s {g['n']} lines are "
+                     f"not the unsharded wave tier's {wn}")
+            if g["launches"]["rect_counts"] != g["nfa_calls"]:
+                fail(f"multi_two_ranks {key}: rank {r} launched the NFA "
+                     f"kernel {g['launches']['rect_counts']} times for "
+                     f"{g['nfa_calls']} count calls")
+            if g["nfa_checked"] != g["nfa_calls"] or g["nfa_differ"]:
+                fail(f"multi_two_ranks {key}: rank {r}: {g['nfa_differ']} "
+                     f"of {g['nfa_checked']} recorded NFA launches differ "
+                     "from the plain version")
+            # (row0, n_rows, block rows) of the rank's launches: rank 0
+            # from row 0, rank 1 from a row0 > 0
+            row0 = {b[0] for b in g["nfa_blocks"]}
+            if len(row0) != 1 or (row0.pop() > 0) != (r > 0):
+                fail(f"multi_two_ranks {key}: rank {r} launched on blocks "
+                     f"{g['nfa_blocks']}")
+        paths[f"multi_two_ranks_{key}"] = {
+            k: sum(res[key]["launches"][k] for res in ranks)
+            for k in ranks[0][key]["launches"]}
+        phase(f"multi_two_ranks_{key}", card=repr(smi),
+              map=repr(inp["grid"].shape), lines=wn,
+              endpoint_tier=repr(LSD_TIER),
+              nfa_calls_by_rank=repr([res[key]["nfa_calls"] for res in ranks]),
+              nfa_launches_equal_plain="'all, each rank'",
+              nfa_blocks_by_rank=repr([res[key]["nfa_blocks"]
+                                       for res in ranks]),
+              unsharded_nfa_calls=w_calls,
+              seconds_by_rank=repr([round(res[key]["seconds"], 2)
+                                    for res in ranks]),
+              unsharded_seconds=round(w_s, 2))
+    phase("multi_two_ranks", card=repr(smi), ranks=2, backend="'gloo'",
+          group_seconds=round(group_s, 2))
+    return paths
+
+
+def multi_temporal(scene, fr32, ctx32, seq32, seq32_ms, cfg, device, smi,
+                   kind):
+    """multi_temporal: run_sequence_temporal over the whole f32 sequence
+    with S segments as lanes on one card, against the sequential rollout
+    timed in rollout_f32 (the same call, inputs and context); returns
+    {path: launches}."""
+    from lsdtpu_torch.runtime import temporal
+    F = len(scene.dataset.frames)
+    tracked = np.isfinite(seq32["score"])
+    paths = {}
+    for S, W in TEMPORAL_CASES:
+        L = -(-F // S)
+        temporal.run_sequence_temporal(fr32, ctx32, cfg=cfg, n_segments=S,
+                                       warmup=W, device=device)  # warm-up
+        times = []
+        for w in _wrappers().values():
+            w.launches = 0
+        for _ in range(REPEATS):
+            t0 = time.perf_counter()
+            par = temporal.run_sequence_temporal(
+                fr32, ctx32, cfg=cfg, n_segments=S, warmup=W, device=device)
+            times.append((time.perf_counter() - t0) * 1e3)
+        launches = {k: w.launches for k, w in _wrappers().items()}
+        if launches["score_partials_batched"] != REPEATS * (L + W) or \
+                launches["score_partials"]:
+            fail(f"multi_temporal S={S}: launches {launches}")
+        ok = np.isfinite(par["score"])
+        if (tracked & ~ok).any():
+            fail(f"multi_temporal S={S}: frames tracked sequentially are "
+                 "lost")
+        err = np.linalg.norm(par["pose"][:, :2] - seq32["pose"][:, :2],
+                             axis=1)[tracked]
+        if not (err.max() < MAX_ERR_PX and err.mean() < MEAN_ERR_PX):
+            fail(f"multi_temporal S={S}: position error max {err.max()} "
+                 f"mean {err.mean()} px from run_sequence")
+        refined, _info = temporal.reconcile_temporal(par, device=device)
+        med = float(np.median(times))
+        paths[f"multi_temporal_S{S}"] = launches
+        phase("multi_temporal", device=repr(kind), power=repr(smi),
+              segments=S, warmup=W, lanes=S, rollout_frames=L + W, frames=F,
+              tracked=int(ok.sum()), sequential_tracked=int(tracked.sum()),
+              median_ms=med, min_ms=min(times), max_ms=max(times),
+              scans_per_s=F / med * 1e3,
+              sequential_median_ms=seq32_ms,
+              sequential_scans_per_s=F / seq32_ms * 1e3,
+              max_err_px=float(err.max()), mean_err_px=float(err.mean()),
+              rmse_m=rmse_m(par["pose"], scene, ok),
+              reconciled_rmse_m=rmse_m(refined, scene, ok),
+              launches=repr(launches),
+              launches_per_rollout_frame=launches["score_partials_batched"]
+              / (REPEATS * (L + W)))
+    return paths
+
+
+def cli_sharded(scene, device, smi, kind):
+    """cli_sharded: `prepare-map --mapprep tpu-sharded` and `batch
+    --concat --temporal 8` through lsdtpu_torch.cli.main in this process
+    (one rank), over the scene written as a dataset directory; returns
+    {path: launches}."""
+    tmp = tempfile.mkdtemp(prefix="lsdtpu_torch_cli_sharded_")
+    try:
+        data = os.path.join(tmp, "data")
+        os.makedirs(data)
+        write_dataset(data, scene)
+        common = ["--cache-dir", os.path.join(tmp, "cache"), "--device",
+                  device.type]
+        F = len(scene.dataset.frames)
+        paths = {}
+        recs, _err, launches, secs = cli_call(
+            "cli_sharded_prepare_map", ["prepare-map", "--data", data,
+                                        *common, "--mapprep", "tpu-sharded"])
+        need_launches("cli_sharded_prepare_map", launches, ("rect_counts",))
+        paths["cli_sharded_prepare_map"] = launches
+        phase("cli_sharded_prepare_map", device=repr(kind), power=repr(smi),
+              lines=recs[0]["lines"], cold_s=secs, launches=repr(launches))
+        recs, err, launches, secs = cli_call(
+            "cli_sharded_batch_temporal",
+            ["batch", "--data", data, *common, "--concat", "--temporal", "8",
+             "--mapprep", "tpu-sharded"])
+        need_launches("cli_sharded_batch_temporal", launches,
+                      ("score_partials_batched",))
+        summary = json.loads(err[-1])
+        if recs[0]["frames"] != F:
+            fail(f"cli_sharded_batch_temporal: records {recs}")
+        paths["cli_sharded_batch_temporal"] = launches
+        phase("cli_sharded_batch_temporal", device=repr(kind),
+              power=repr(smi), tracked=recs[0]["tracked"], frames=F,
+              scans_per_sec=summary["scans_per_sec"], command_s=secs,
+              launches=repr(launches))
+        return paths
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main():
     import torch
     # --- 1. device ---------------------------------------------------
@@ -2023,6 +2691,7 @@ def main():
           tracked=int(tracked.sum()),
           rmse_m=rmse_m(res["pose"], scene, tracked),
           launches=launches, launches_per_frame=launches / (F * REPEATS))
+    seq32, seq32_ms = res, med     # the sequential rollout (multi_temporal)
 
     # where the time goes: the first PROFILE_FRAMES frames once more under
     # the profiler (its event processing costs ~0.5 s a frame)
@@ -2135,7 +2804,7 @@ def main():
     # the NFA kernel on the launches the main path made
     n_checked = 0
     for calls in (calls32, calls64):
-        for deg_map, scal, all_pix, ali_pix in calls:
+        for deg_map, scal, all_pix, ali_pix, _block in calls:
             want = onfa.rect_counts_reference(deg_map, scal)
             if not (torch.equal(all_pix, want[0])
                     and torch.equal(ali_pix, want[1])):
@@ -2154,6 +2823,7 @@ def main():
           degenerate="vertical, horizontal, outside: equal")
 
     nfa_runs = nfa_cases(calls32, repr(smi), floor_ms)
+    nfa_row_runs = nfa_row_cases(calls32, repr(smi), floor_ms)
     phase("library", kernel="rect_counts", library_ms="null",
           reason="'no single PyTorch call rasterizes and counts a batch of "
                  "rectangles'")
@@ -2472,7 +3142,24 @@ def main():
     phase("cli", card=repr(smi), launches=json.dumps(cli_paths),
           seconds=round(time.perf_counter() - t_cli, 2))
 
-    # --- 13. report ------------------------------------------------------
+    # --- 13. the multi-device runners (slice 8) ----------------------------
+    t_multi = time.perf_counter()
+    pillar = (pillar_art.lines_info, pillar_art.map_cache)
+    multi_paths = multi_world1(scene, lines, cache64, scene_p, pillar, cfg,
+                               device, smi)
+    multi_prep(scene, cache64, device, smi)
+    row_cases = [row_block_case(f"row_block_mp2_{tag}", scene, lines,
+                                cache64, cfg, device, repr(smi), floor_ms, dt)
+                 for tag, dt in (("f32", np.float32), ("f64", np.float64))]
+    multi_paths.update(multi_two_ranks(scene, lines, cache64, scene_p, pillar,
+                                       cfg, device, smi))
+    multi_paths.update(multi_temporal(scene, fr32, ctx32, seq32, seq32_ms,
+                                      cfg, device, smi, kind))
+    multi_paths.update(cli_sharded(scene, device, smi, kind))
+    phase("multi", card=repr(smi), launches=json.dumps(multi_paths),
+          seconds=round(time.perf_counter() - t_multi, 2))
+
+    # --- 14. report ------------------------------------------------------
     main_case = cases[1]      # relock frame as the main path scores it
     kern = {
         "name": "score_partials", "route": "cuda",
@@ -2519,7 +3206,7 @@ def main():
         "design": "one 512-thread block per rectangle; column bounds, "
                   "block scan of the heights, flat covered index by "
                   "binary search",
-        "cases": nfa_runs,
+        "cases": nfa_runs + nfa_row_runs,
     }
     fifo_kern = []
     for run, name, replaces in (
@@ -2555,7 +3242,8 @@ def main():
         "checked": True, "launches": batch_launches + pool_launches,
         "launches_by_path": {"batch_f32": batch_launches,
                              "serving_f32": pool_launches},
-        "max_abs_err": max(c["max_abs_err"] for c in batch_cases),
+        "max_abs_err": max(c["max_abs_err"] for c in batch_cases
+                           + row_cases),
         "ms": bmain["ms"], "ms_source": bmain["ms_source"],
         "plain_ms": bmain["plain_ms"], "bound_ms": bmain["bound_ms"],
         "bound_by": bmain["bound_by"], "library_ms": None,
@@ -2563,13 +3251,19 @@ def main():
         "design": "the CalcScore kernel on a (grid, B) grid: blockIdx.y is "
                   "the lane, each lane the same persistent x-extent (the "
                   "resident blocks over B); a lane's slots, arithmetic and "
-                  "summation order are the single-lane launch's",
-        "cases": batch_cases,
+                  "summation order are the single-lane launch's; over a "
+                  "row block (row0) for the mp ranks",
+        "cases": batch_cases + row_cases,
     }
     kernels = [kern, batched_kern, nfa_kern] + fifo_kern
     for k in kernels:
         k["launches_by_path"].update(
             {path: counts[k["name"]] for path, counts in cli_paths.items()})
+        k["launches_by_path"].update(
+            {path: counts[k["name"]] for path, counts in multi_paths.items()})
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.destroy_process_group()    # the one-rank group of multi_world1
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -2578,4 +3272,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--multi-rank"]:
+        multi_rank(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]))
+    else:
+        main()

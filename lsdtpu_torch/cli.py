@@ -22,12 +22,18 @@ rounding.  Three differences from it:
   * --device {cuda,cpu} (default cuda) replaces --backend: asking for
     the card where there is none exits non-zero; nothing falls back to
     the CPU.
-  * --mapprep offers the port's own map prep ("torch") only: "oracle"
-    (the reference package's numpy oracle) is not part of the port, and
-    "tpu-sharded" and batch --temporal S > 1 wait for the multi-device
-    runners (ROADMAP.md Queue 1); each exits 2 with a message.
+  * --mapprep offers the port's own map prep: "torch", and "tpu-sharded"
+    (the reference's name: the distance field and the wave LSD sharded
+    over the ranks of the process group); "oracle" (the reference
+    package's numpy oracle) is not part of the port and exits 2.
   * bench waits for the GPU bench entry (ROADMAP.md Queue 1, "Outside
     the order"); it exits 2.
+
+Under torchrun (WORLD_SIZE > 1) every command starts the process group
+first (runtime/distributed.initialize); without it the commands run at
+world size 1.  batch --concat --temporal S rolls the stream as S
+segments (runtime/temporal.py): the lanes of one batched rollout, split
+over the ranks.
 """
 
 from __future__ import annotations
@@ -50,6 +56,7 @@ from lsdtpu_torch.io.refdump import dump_map_artifacts
 from lsdtpu_torch.refine.pose_graph import (refine_trajectory,
                                             refine_trajectory_distributed)
 from lsdtpu_torch.render import render_line_image
+from lsdtpu_torch.runtime import distributed
 from lsdtpu_torch.runtime.artifacts import prepare_map_cached
 from lsdtpu_torch.runtime.batch import run_batch, stack_batch, stack_concat
 from lsdtpu_torch.runtime.loop import (_FRAME_KEYS, featurize_stage,
@@ -58,6 +65,7 @@ from lsdtpu_torch.runtime.loop import (_FRAME_KEYS, featurize_stage,
 from lsdtpu_torch.runtime.online import (LEGACY_Z_OCC_MAX_DIS,
                                          OnlineLocalizer, to_host)
 from lsdtpu_torch.runtime.serving import SessionPool
+from lsdtpu_torch.runtime.temporal import run_sequence_temporal
 from lsdtpu_torch.runtime.trace import device_trace, stage_timings
 from lsdtpu_torch.scan.featurize import ScanFeatures
 
@@ -76,13 +84,10 @@ PRESETS = {
 # fails later with a context-free error.
 OPTIONAL_FIELDS = frozenset({"match.obstacle_min_dist"})
 
-MULTI_DEVICE = ("waits for the multi-device runners (ROADMAP.md Queue 1, "
-                "\"Multi-device runners\")")
 # --mapprep values the port does not offer, with their exit messages
 UNSUPPORTED_MAPPREP = {
     "oracle": "--mapprep oracle: the numpy oracle belongs to the reference "
               "package, which the port does not import; use --mapprep torch",
-    "tpu-sharded": f"--mapprep tpu-sharded {MULTI_DEVICE}",
 }
 
 
@@ -103,8 +108,10 @@ def _add_mapprep(p):
     p.add_argument("--mapprep", choices=("torch", "oracle", "tpu-sharded"),
                    default="torch",
                    help="map prep: 'torch', the port's own (on --device); "
-                        "'oracle' is the reference package's numpy oracle, "
-                        "not part of the port; 'tpu-sharded' " + MULTI_DEVICE)
+                        "'tpu-sharded', the distance field and the wave LSD "
+                        "sharded over the ranks of the process group (one "
+                        "rank without torchrun); 'oracle' is the reference "
+                        "package's numpy oracle, not part of the port")
     p.add_argument("--cache-dir", default=None, metavar="DIR",
                    help="map-artifact cache directory (default "
                         "~/.cache/lsdtpu_torch; point at a temp dir for "
@@ -183,7 +190,8 @@ def _prepare(args, ds, cfg, z=None, growth=None):
         ds.map_value, ds.param.resol,
         z_occ_max_dis=cfg.map.z_occ_max_dis if z is None else z,
         cache_dir=args.cache_dir, device=args.device,
-        growth=cfg.lsd.growth if growth is None else growth)
+        growth=cfg.lsd.growth if growth is None else growth,
+        backend=getattr(args, "mapprep", "torch"))
 
 
 def _context(args, ds, lines, cache, cfg, dtype):
@@ -421,8 +429,9 @@ def cmd_profile(args) -> int:
 
 def cmd_batch(args) -> int:
     cfg = build_cfg(args)
-    if args.temporal > 1:
-        print(f"--temporal {MULTI_DEVICE}", file=sys.stderr)
+    if args.temporal > 1 and not args.concat:
+        print("--temporal requires --concat (the segment-parallel "
+              "replay runs over one concatenated stream)", file=sys.stderr)
         return 2
     dss = [load_dataset(p) for p in args.data]
     arts = [_prepare(args, d, cfg) for d in dss]
@@ -437,8 +446,16 @@ def cmd_batch(args) -> int:
         ctx = _context(args, dss[0], *arts[0], cfg, np.float32)
         frames, bounds = stack_concat(dss)
         t0 = time.perf_counter()
-        sc = _np(run_sequence(frames, ctx, cfg, device=args.device)
-                 ["score"])
+        if args.temporal > 1:
+            # segment-parallel replay: S cold-started segments as lanes,
+            # split over the ranks (px-level warmup tolerance against the
+            # sequential chain)
+            sc = run_sequence_temporal(frames, ctx, cfg=cfg,
+                                       n_segments=args.temporal,
+                                       device=args.device)["score"]
+        else:
+            sc = _np(run_sequence(frames, ctx, cfg, device=args.device)
+                     ["score"])
         dt = time.perf_counter() - t0
         for b in range(len(dss)):
             lo, hi = bounds[b], bounds[b + 1]
@@ -523,8 +540,10 @@ def main(argv=None) -> int:
         description="The PyTorch/CUDA port's commands.  --device cuda (the "
                     "default) runs on the card and exits non-zero where "
                     "there is none; --device cpu runs the plain PyTorch "
-                    "path.  --mapprep offers the port's own map prep only, "
-                    "and bench waits for the GPU bench entry.")
+                    "path.  --mapprep offers the port's own map prep "
+                    "(torch, tpu-sharded), and bench waits for the GPU "
+                    "bench entry.  Under torchrun the commands start the "
+                    "process group first.")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="where the port runs: 'cuda' (default; exits "
                          "non-zero without a card, never falls back) or "
@@ -575,8 +594,10 @@ def main(argv=None) -> int:
                    help="corpus replay: ONE frame loop over all sequences "
                         "(must share the map) instead of a lane batch")
     p.add_argument("--temporal", type=int, default=1, metavar="S",
-                   help="segment-parallel replay over devices: S > 1 "
-                        + MULTI_DEVICE)
+                   help="with --concat: segment-parallel replay of the "
+                        "stream as S segments (the lanes of one batched "
+                        "rollout, split over the ranks of the process "
+                        "group)")
     _add_cfg_args(p)
     p.set_defaults(fn=cmd_batch)
 
@@ -604,6 +625,8 @@ def main(argv=None) -> int:
     if getattr(args, "mapprep", "torch") in UNSUPPORTED_MAPPREP:
         print(UNSUPPORTED_MAPPREP[args.mapprep], file=sys.stderr)
         return 2
+    # under torchrun: the process group first (world size 1: nothing)
+    distributed.initialize(device=args.device)
     return args.fn(args)
 
 

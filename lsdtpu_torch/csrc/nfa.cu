@@ -17,6 +17,15 @@
 // INT_MIN (the x86 cvttsd2si the reference inherits), and it is aligned
 // when |deg - deg_map|, folded by 2*pi above 1.5*pi, is below prec.
 //
+// Row blocks (the sharded map prep, mapprep/lsd_sharded.py): deg_map may
+// be rows [row0, row0 + H) of a field whose true height is n_rows; y is
+// then the global row, local row + row0, and rows at or past n_rows
+// never count (the reference package's rect_counts_math with row0 and
+// n_rows, lsdtpu/ops/nfa_pallas.py:53-78).  The column pass clips each
+// column's global [y_low, y_high] to [row0, min(row0 + H, n_rows) - 1]
+// and the pixel pass reads local rows; row0 = 0 and n_rows = H are the
+// whole field.
+//
 // Bound.  Each call reads the covered pixels once and 16 scalars per
 // rectangle and writes two counts: at the recorded map preps (293x432
 // field, R <= 5, at most ~855 covered pixels) that is a few KB, about a
@@ -110,8 +119,8 @@ __device__ __forceinline__ int block_scan(int v, int* sh_warp) {
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-rect_counts_kernel(const T* __restrict__ deg_map, int H, int W,
-                   const T* __restrict__ scalars,
+rect_counts_kernel(const T* __restrict__ deg_map, int H, int W, int row0,
+                   int n_rows, const T* __restrict__ scalars,
                    int32_t* __restrict__ all_out,
                    int32_t* __restrict__ ali_out) {
   __shared__ int sh_base[kThreads];  // column's first row minus its offset
@@ -139,12 +148,14 @@ rect_counts_kernel(const T* __restrict__ deg_map, int H, int W,
         const T hi_v = xx < vx1 ? add_rn(vy0, mul_rn(sub_rn(xx, vx0), k0))
                                 : add_rn(vy1, mul_rn(sub_rn(xx, vx1), k1));
         // y_low/y_high are whole numbers (or INT_MIN), so the float row
-        // tests of the plain version are these integer row bounds
-        const T lo = fmax(c_int(ceil(lo_v), lo_v), T(0));
-        const T hi = fmin(c_int(floor(hi_v), hi_v), T(H - 1));
+        // tests of the plain version are these integer (global) row
+        // bounds, clipped to the block's rows below n_rows
+        const T lo = fmax(c_int(ceil(lo_v), lo_v), T(row0));
+        const T hi = fmin(fmin(c_int(floor(hi_v), hi_v), T(row0 + H - 1)),
+                          T(n_rows - 1));
         if (lo <= hi) {
-          lo_i = static_cast<int>(lo);
-          h = static_cast<int>(hi) - lo_i + 1;
+          lo_i = static_cast<int>(lo) - row0;   // the block's local row
+          h = static_cast<int>(hi) - static_cast<int>(lo) + 1;
         }
       }
     }
@@ -205,11 +216,12 @@ rect_counts_kernel(const T* __restrict__ deg_map, int H, int W,
 }
 
 template <typename T>
-cudaError_t launch(const T* deg_map, int H, int W, const T* scalars, int R,
-                   int32_t* all_out, int32_t* ali_out, void* stream) {
+cudaError_t launch(const T* deg_map, int H, int W, int row0, int n_rows,
+                   const T* scalars, int R, int32_t* all_out,
+                   int32_t* ali_out, void* stream) {
   if (R <= 0) return cudaSuccess;
   rect_counts_kernel<T><<<R, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      deg_map, H, W, scalars, all_out, ali_out);
+      deg_map, H, W, row0, n_rows, scalars, all_out, ali_out);
   return cudaGetLastError();
 }
 
@@ -217,18 +229,22 @@ cudaError_t launch(const T* deg_map, int H, int W, const T* scalars, int R,
 
 extern "C" {
 
-cudaError_t lsd_rect_counts_f32(const float* deg_map, int H, int W,
-                                const float* scalars, int R,
+// deg_map: rows [row0, row0 + H) of a field of true height n_rows
+// (row0 = 0, n_rows = H: the whole field).
+cudaError_t lsd_rect_counts_f32(const float* deg_map, int H, int W, int row0,
+                                int n_rows, const float* scalars, int R,
                                 int32_t* all_out, int32_t* ali_out,
                                 void* stream) {
-  return launch<float>(deg_map, H, W, scalars, R, all_out, ali_out, stream);
+  return launch<float>(deg_map, H, W, row0, n_rows, scalars, R, all_out,
+                       ali_out, stream);
 }
 
 cudaError_t lsd_rect_counts_f64(const double* deg_map, int H, int W,
-                                const double* scalars, int R,
-                                int32_t* all_out, int32_t* ali_out,
+                                int row0, int n_rows, const double* scalars,
+                                int R, int32_t* all_out, int32_t* ali_out,
                                 void* stream) {
-  return launch<double>(deg_map, H, W, scalars, R, all_out, ali_out, stream);
+  return launch<double>(deg_map, H, W, row0, n_rows, scalars, R, all_out,
+                        ali_out, stream);
 }
 
 }  // extern "C"

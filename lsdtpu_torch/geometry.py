@@ -33,6 +33,19 @@ def sqrt(x):
     return torch.sqrt(x)
 
 
+def atan2(y, x):
+    """atan2 whose value depends on its inputs only, on every device.
+
+    The CPU build of torch's atan2 gives another ulp for the same input
+    in the tail of a vectorized loop than in its body (torch 2.13), so a
+    block of a field and the whole field would differ; the card's is
+    elementwise.  On CPU tensors numpy's atan2 computes it."""
+    if y.device.type == "cpu":
+        return torch.from_numpy(np.asarray(np.arctan2(y.numpy(force=True),
+                                                      x.numpy(force=True))))
+    return torch.atan2(y, x)
+
+
 def tree_sum(rows, lead: int = 1):
     """Sums of ``rows`` over all axes after its first ``lead`` ones (for
     lead = 1: each row of a (k, ...) tensor; for lead = 2: each row of

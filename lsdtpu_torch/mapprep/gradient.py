@@ -27,7 +27,7 @@ def gradient_core(gauss: torch.Tensor):
     gx = (b + d - a - c) / 2.0
     gy = (c + d - a - b) / 2.0
     m = geo.sqrt(gx * gx + gy * gy)
-    v = torch.atan2(gx, -gy)
+    v = geo.atan2(gx, -gy)
     v = torch.where(torch.abs(v - PI) < 1e-6, 0.0, v)
     return m, v
 

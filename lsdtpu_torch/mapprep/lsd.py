@@ -21,6 +21,18 @@ reference package:
 
 The in-place 1<->255 input remap (myLSD.cpp:135-142) is functional:
 callers get the remapped map back beside the lines.
+
+``_seed_walk`` is also the body of the row-block-sharded walk
+(mapprep/lsd_sharded.py): with ``row0``, ``axis`` (a
+runtime/collectives.Axis) and ``n_rows`` each rank holds rows
+[row0, row0 + H) of the field and runs the same host loop, every
+full-field pass reducing over its block and then over the axis: the seed
+is a pmax of the bin, then a pmin of the global row, then of the column;
+a growth wave's dilation takes the neighbours' boundary rows (the +-1
+halo) and its circular-mean sums are psummed; the rectangle fit reduces
+over the axis (rect.py) and the NFA counts are psummed (nfa.py).  Every
+rank then holds the same scalars and emits the same lines.  FIFO growth
+keeps one global queue and is not sharded.
 """
 
 from __future__ import annotations
@@ -40,39 +52,60 @@ from lsdtpu_torch.mapprep.gaussian import gaussian_sampler
 from lsdtpu_torch.mapprep.gradient import gradient_field
 from lsdtpu_torch.mapprep.stats import MapPrepStats
 from lsdtpu_torch.ops import grow as ogrow
+from lsdtpu_torch.runtime.collectives import Axis
 
 PI = math.pi
 GROWTH = ("wave", "fifo")
 
 
-def _dilate8(mask):
-    """8-neighbour dilation: a 3x3 max pool of the 0/1 mask (exact)."""
-    m = mask.to(torch.float32)[None, None]
-    return F.max_pool2d(m, 3, 1, 1)[0, 0] > 0.0
+def _dilate8(mask, axis: Axis = Axis.none()):
+    """8-neighbour dilation: a 3x3 max pool of the 0/1 mask (exact).  Over
+    ranks the mask is a row block: the previous rank's last row and the
+    next rank's first row join it first (zeros past either end), so a
+    wave crosses block boundaries as it crosses any row."""
+    m = mask.to(torch.float32)
+    if axis.size == 1:
+        # the halo rows would be zeros, which the pool's padding gives
+        # already: skip the two launches a wave of joining them
+        return F.max_pool2d(m[None, None], 3, 1, 1)[0, 0] > 0.0
+    up, dn = axis.halo(m[0], m[-1])
+    m = torch.cat([up[None], m, dn[None]])
+    return (F.max_pool2d(m[None, None], 3, 1, 1)[0, 0] > 0.0)[1:-1]
 
 
 def _grow(seed_y: int, seed_x: int, seed_deg, deg_thre, free, deg_map,
-          sin_map, cos_map, stats: MapPrepStats):
+          sin_map, cos_map, stats: MapPrepStats, row0: int = 0,
+          axis: Axis = Axis.none()):
     """Wave-synchronous region growth (reference: RegionGrower,
     myLSD.cpp:491-590).  free: the pixels growth may enter (used != 1;
     NFA-rejected value-2 pixels regrow, myLSD.cpp:534); sin_map/cos_map:
     sin/cos of deg_map.  Returns (cur mask, reg_deg (), pixel count,
-    None): the shape of _grow_fifo's return, with no queue."""
+    None): the shape of _grow_fifo's return, with no queue.  row0/axis:
+    a row block of a sharded field; the wave's sums are psummed, so every
+    rank carries the same running angle and the fixpoint is global."""
     cur = torch.zeros(deg_map.shape, dtype=torch.bool, device=deg_map.device)
-    cur[seed_y, seed_x] = True
+    if 0 <= seed_y - row0 < deg_map.shape[0]:
+        cur[seed_y - row0, seed_x] = True
     sin = torch.sin(seed_deg)
     cos = torch.cos(seed_deg)
     deg = torch.atan2(sin, cos)
     n = 1
     while True:
         stats.waves += 1
-        cand = _dilate8(cur) & ~cur & free
+        cand = _dilate8(cur, axis) & ~cur & free
         dif = torch.abs(deg - deg_map)
         dif = torch.where(dif > PI * 1.5, torch.abs(dif - 2 * PI), dif)
         acc = cand & (dif < deg_thre)
         n_acc = acc.sum()
-        sin = sin + torch.where(acc, sin_map, 0.0).sum()
-        cos = cos + torch.where(acc, cos_map, 0.0).sum()
+        s_sin = torch.where(acc, sin_map, 0.0).sum()
+        s_cos = torch.where(acc, cos_map, 0.0).sum()
+        if axis.size > 1:
+            # one collective: the count rides exactly in the float type
+            # (at one rank the stack would be a launch a wave for nothing)
+            n_acc, s_sin, s_cos = axis.psum(torch.stack(
+                [n_acc.to(s_sin.dtype), s_sin, s_cos]))
+        sin = sin + s_sin
+        cos = cos + s_cos
         cur = cur | acc
         deg = torch.atan2(sin, cos)
         k = int(stats.to_host(n_acc))
@@ -131,25 +164,42 @@ def line_segment_detector(map_gray, sca: float = 0.3, sig: float = 0.6,
     ends, n = _seed_walk(mag, deg_map, prebanned, max_grad, log_nt, sca,
                          ang_thre, den_thre, pse_bin, max_lines, stats,
                          growth=growth)
+    infos, mask = lines_info(ends, n, max_lines, dtype, dev)
+    return infos, mask, n, remapped
+
+
+def lines_info(ends, n: int, max_lines: int, dtype, dev):
+    """(linesInfo (max_lines, 10), mask (max_lines,)) on ``dev`` from the
+    seed walk's endpoint rows."""
     lines = torch.zeros((max_lines, 4), dtype=dtype, device=dev)
     if ends:
         lines[:len(ends)] = torch.from_numpy(np.stack(ends)).to(dev)
     mask = torch.arange(max_lines, device=dev) < n
     infos = geo.lines_info_from_endpoints(lines[:, 0], lines[:, 1],
                                           lines[:, 2], lines[:, 3])
-    infos = torch.where(mask[:, None], infos, 0.0)
-    return infos, mask, n, remapped
+    return torch.where(mask[:, None], infos, 0.0), mask
 
 
 def _seed_walk(mag, deg_map, prebanned, max_grad, log_nt: float, sca: float,
                ang_thre: float, den_thre: float, pse_bin: int,
-               max_lines: int, stats: MapPrepStats, growth: str = "wave"):
+               max_lines: int, stats: MapPrepStats, growth: str = "wave",
+               row0: int = 0, axis: Axis = Axis.none(),
+               n_rows: Optional[int] = None):
     """The sequential seeded region extraction loop (myLSD.cpp:219-272)
     with wave or FIFO region growth.  Returns (endpoint rows (at most
-    max_lines) of numpy scalars in the working dtype, raw line count)."""
+    max_lines) of numpy scalars in the working dtype, raw line count).
+
+    row0/axis/n_rows (mapprep/lsd_sharded.py): mag, deg_map and prebanned
+    are this rank's rows [row0, row0 + H) of a field whose true height is
+    n_rows (the rows past it are padding, prebanned); module docstring."""
     if growth not in GROWTH:
         raise ValueError(f"growth={growth!r}: expected one of {GROWTH}")
     fifo = growth == "fifo"
+    if fifo and axis.size > 1:
+        raise ValueError("growth='fifo' is inherently sequential (a global "
+                         "FIFO queue, myLSD.cpp:491-590) and unsupported "
+                         "under row-block sharding; use growth='wave'")
+    block = dict(row0=row0, axis=axis)
     H, W = mag.shape
     reg_thre = -log_nt / math.log10(ang_thre / 180.0)
     ali_pro = ang_thre / 180.0
@@ -173,14 +223,21 @@ def _seed_walk(mag, deg_map, prebanned, max_grad, log_nt: float, sca: float,
     while True:
         # two-stage argmax: the highest live bin, then the row-major
         # first pixel in it
-        qmax = qlive.max()
-        flat = torch.argmax((qlive == qmax).to(torch.uint8).reshape(-1))
-        top, flat = stats.to_host(torch.stack([qmax.double(), flat.double()]))
+        if axis.size == 1:
+            # at one rank _seed_sharded's extra operations (its
+            # row/column pmins) would add launches a seed for nothing
+            qmax = qlive.max()
+            flat = torch.argmax((qlive == qmax).to(torch.uint8).reshape(-1))
+            top, flat = stats.to_host(torch.stack([qmax.double(),
+                                                   flat.double()]))
+            sy, sx = divmod(int(flat), W)
+        else:
+            top, sy, sx = _seed_sharded(qlive, row0, axis, stats)
         if top < 1.0:
             return ends, n_lines
         stats.seeds += 1
-        sy, sx = divmod(int(flat), W)
-        qlive[sy, sx] = -1.0
+        if 0 <= sy - row0 < H:
+            qlive[sy - row0, sx] = -1.0
         if fifo:
             ban = used == 1
 
@@ -194,17 +251,20 @@ def _seed_walk(mag, deg_map, prebanned, max_grad, log_nt: float, sca: float,
 
             def grow_fn(cen_deg, new_thre):
                 return _grow(sy, sx, cen_deg, new_thre, free, deg_map,
-                             sin_map, cos_map, stats)
-        cur, reg_deg, size, _growth = grow_fn(deg_map[sy, sx], deg_thre)
+                             sin_map, cos_map, stats, **block)
+        cur, reg_deg, size, _growth = grow_fn(
+            mrect.field_at(deg_map, sy, sx, **block), deg_thre)
         if size < reg_thre:
             continue
         rec = mrect.rectangle_converter(cur, reg_deg, mag, ali_pro, deg_thre,
-                                        stats)
+                                        stats, **block)
         ok, cur2, rec2 = mrect.refiner(sx, sy, cur, size, rec, mag, deg_map,
-                                       den_thre, deg_thre, grow_fn, stats)
+                                       den_thre, deg_thre, grow_fn, stats,
+                                       **block)
         if not ok:
             continue
-        log_nfa, rec3 = mnfa.rectangle_improver(rec2, deg_map, log_nt, stats)
+        log_nfa, rec3 = mnfa.rectangle_improver(rec2, deg_map, log_nt, stats,
+                                                n_rows=n_rows, **block)
         accept = bool(log_nfa > 0.0)
         # accepted -> used=1; rejected -> used=2 (regrowable)
         used = torch.where(cur2, 1 if accept else 2, used).to(torch.int8)
@@ -222,3 +282,24 @@ def _seed_walk(mag, deg_map, prebanned, max_grad, log_nt: float, sca: float,
         # the count keeps growing past the cap so callers can detect
         # overflow (n_lines > max_lines)
         n_lines += 1
+
+
+def _seed_sharded(qlive, row0: int, axis: Axis, stats: MapPrepStats):
+    """The next seed of a row-block-sharded walk: (top bin, global row,
+    column).  The bin is a pmax; among the ranks holding it, the lowest
+    global row and then its lowest column (pmins), which is the unsharded
+    row-major first, since row-major order restricted to a block is the
+    global order."""
+    qmax = axis.pmax(qlive.max())
+    cand = (qlive == qmax).reshape(-1)
+    W = qlive.shape[1]
+    big = torch.iinfo(torch.int64).max
+    flat = torch.argmax(cand.to(torch.uint8))
+    has = cand.any()
+    gy = torch.where(has, row0 + flat // W, big)
+    gx = torch.where(has, flat % W, big)
+    sy = axis.pmin(gy)
+    sx = axis.pmin(torch.where(gy == sy, gx, big))
+    top, sy, sx = stats.to_host(torch.stack([qmax.double(), sy.double(),
+                                             sx.double()]))
+    return top, int(sy), int(sx)

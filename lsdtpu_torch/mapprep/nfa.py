@@ -24,6 +24,7 @@ import torch
 
 from lsdtpu_torch.mapprep.stats import MapPrepStats
 from lsdtpu_torch.ops import nfa as onfa
+from lsdtpu_torch.runtime.collectives import Axis
 
 PI = math.pi
 EPS = 2.2204e-16
@@ -78,26 +79,32 @@ def pack_rect_scalars(rec) -> np.ndarray:
 
 
 def rectangles_nfa(recs, deg_map: torch.Tensor, log_nt: float,
-                   stats: MapPrepStats) -> list:
+                   stats: MapPrepStats, row0: int = 0,
+                   axis: Axis = Axis.none(), n_rows=None) -> list:
     """-log10 NFA of each rectangle of ``recs`` (reference:
     RectangleNFACalculator, myLSD.cpp:926-1059): one rect_counts call
-    over the batch, one transfer of its counts to the host."""
+    over the batch, one transfer of its counts to the host.  Row-block
+    sharding (mapprep/lsd_sharded.py): deg_map is this rank's rows
+    [row0, row0 + H) of a field of true height n_rows, and the block
+    counts are psummed over ``axis`` (a runtime/collectives.Axis); the
+    binomial tail then runs on every rank alike."""
     with np.errstate(all="ignore"):
         sc = np.stack([pack_rect_scalars(r) for r in recs])
     all_pix, ali_pix = onfa.rect_counts(deg_map, torch.from_numpy(sc).to(
-        deg_map.device))
+        deg_map.device), row0, n_rows)
     stats.nfa_calls += 1
     stats.nfa_rects += len(recs)
-    counts = stats.to_host(torch.stack([all_pix, ali_pix]))
+    counts = stats.to_host(axis.psum(torch.stack([all_pix, ali_pix])))
     t = sc.dtype.type
     return [_binom_tail_nfa(t(a), t(b), r["p"], log_nt)
             for a, b, r in zip(counts[0], counts[1], recs)]
 
 
 def rectangle_nfa(rec, deg_map: torch.Tensor, log_nt: float,
-                  stats: MapPrepStats):
-    """-log10 NFA of one rectangle."""
-    return rectangles_nfa([rec], deg_map, log_nt, stats)[0]
+                  stats: MapPrepStats, **block):
+    """-log10 NFA of one rectangle (``block``: rectangles_nfa's row0,
+    axis and n_rows)."""
+    return rectangles_nfa([rec], deg_map, log_nt, stats, **block)[0]
 
 
 def _binom_tail_nfa(all_pix, ali_pix, p, log_nt: float):
@@ -170,7 +177,7 @@ _PHASES = ((_half_p, False), (_shrink_wid, True), (_shift_side(1), True),
 
 
 def rectangle_improver(rec, deg_map: torch.Tensor, log_nt: float,
-                       stats: MapPrepStats):
+                       stats: MapPrepStats, **block):
     """Greedy NFA improvement (reference: RectangleImprover,
     myLSD.cpp:1061-1158), stopping at the first phase that reaches
     NFA > 0.  Returns (log_nfa, rec).
@@ -181,8 +188,9 @@ def rectangle_improver(rec, deg_map: torch.Tensor, log_nt: float,
     chain then runs over their values in order.  A gated trial that
     would cross the width floor is skipped, and so are the ones after
     it (the width no longer changes): the reference package evaluates
-    them and discards their values."""
-    log_nfa = rectangle_nfa(rec, deg_map, log_nt, stats)
+    them and discards their values.  ``block``: rectangles_nfa's row0,
+    axis and n_rows."""
+    log_nfa = rectangle_nfa(rec, deg_map, log_nt, stats, **block)
     best = dict(rec)
     half = type(rec["wid"])(0.5)
     for update, gated in _PHASES:
@@ -197,7 +205,7 @@ def rectangle_improver(rec, deg_map: torch.Tensor, log_nt: float,
         if not trials:
             continue
         for new, cand in zip(trials, rectangles_nfa(trials, deg_map, log_nt,
-                                                    stats)):
+                                                    stats, **block)):
             if cand > log_nfa:
                 log_nfa, best = cand, new
     return log_nfa, best

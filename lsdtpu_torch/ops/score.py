@@ -31,7 +31,8 @@ same kernel, with a grid of (grid, B): each lane its own candidates,
 survivor list, counts, pixels, field on a common (B, H, W) canvas and
 true map extent, and the same per-lane x-extent (``plan`` with
 ``lanes``; ``split_lanes`` and ``zero_split`` are the lane
-decomposition).  It counts its launches in
+decomposition), over each lane's whole field or over the same row block
+``[row0, row0 + H)`` of every lane's (a map-block-sharded rank).  It counts its launches in
 ``score_partials_batched.launches``; for CPU tensors, and only then, it
 calls ``score_partials_batched_reference``.  A lane's partials equal a
 single-lane launch on that lane's inputs bit for bit.
@@ -361,21 +362,23 @@ def _check_batched(cand6, idx, n_cand, px, py, n_pix, cache, rows, cols):
 def score_partials_batched(cand6, idx, n_cand, px, py, n_pix, cache, rows,
                            cols, z_occ_max_dis: float,
                            max_dist_penalty: float,
-                           obstacle_min_dist: float):
+                           obstacle_min_dist: float, row0: int = 0):
     """Per-slot CalcScore partials of B lanes in one launch.
 
     cand6: (B, 6, K); idx: (B, K) int32 survivor lists or None; n_cand,
     n_pix: (B,) int32 live counts, read on the device; px, py: (B, P);
     cache: the (B, H, W) canvas, each lane's field in its top-left
-    rows[l] x cols[l] cells (any storage type score_partials takes);
-    rows, cols: (B,) int32 true map extents, read on the device.
-    Returns (sum_d, n_valid, sum_far, n_far), each (B, K); dead slots are
-    zero, lane by lane."""
+    rows[l] x cols[l] cells (any storage type score_partials takes), or,
+    with ``row0``, every lane's rows [row0, row0 + H) of its field (the
+    row block of a map-block-sharded rank; rows past a lane's true
+    extent never count); rows, cols: (B,) int32 true map extents, read
+    on the device.  Returns (sum_d, n_valid, sum_far, n_far), each
+    (B, K); dead slots are zero, lane by lane."""
     _check_batched(cand6, idx, n_cand, px, py, n_pix, cache, rows, cols)
     if cand6.device.type == "cpu":
         return score_partials_batched_reference(
             cand6, idx, n_cand, px, py, n_pix, cache, rows, cols,
-            z_occ_max_dis, max_dist_penalty, obstacle_min_dist)
+            z_occ_max_dis, max_dist_penalty, obstacle_min_dist, row0)
     if cand6.device.type != "cuda":
         raise ValueError(f"no kernel for device {cand6.device}")
     B, _six, K = cand6.shape
@@ -391,10 +394,11 @@ def score_partials_batched(cand6, idx, n_cand, px, py, n_pix, cache, rows,
     err = _kernel(dt, cache.dtype)(
         cand6.data_ptr(), K, None if idx is None else idx.data_ptr(),
         n_cand.data_ptr(), px.data_ptr(), py.data_ptr(), P, n_pix.data_ptr(),
-        cache.data_ptr(), H, W, W, H * W, 0, 0, H, W, rows.data_ptr(),
-        cols.data_ptr(), z_occ_max_dis, max_dist_penalty, obstacle_min_dist,
-        scale(z_occ_max_dis, cache.dtype, dt), sum_d.data_ptr(),
-        n_valid.data_ptr(), sum_far.data_ptr(), n_far.data_ptr(), B, pl.grid,
+        cache.data_ptr(), H, W, W, H * W, int(row0), 0, H, W,
+        rows.data_ptr(), cols.data_ptr(), z_occ_max_dis, max_dist_penalty,
+        obstacle_min_dist, scale(z_occ_max_dis, cache.dtype, dt),
+        sum_d.data_ptr(), n_valid.data_ptr(), sum_far.data_ptr(),
+        n_far.data_ptr(), B, pl.grid,
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"score_partials_batched kernel launch failed: "
@@ -410,13 +414,14 @@ def score_partials_batched_reference(cand6, idx, n_cand, px, py, n_pix,
                                      cache, rows, cols,
                                      z_occ_max_dis: float,
                                      max_dist_penalty: float,
-                                     obstacle_min_dist: float):
+                                     obstacle_min_dist: float,
+                                     row0: int = 0):
     """Plain PyTorch version of score_partials_batched (same contract):
     score_partials_reference on each lane's inputs, stacked."""
     B = cand6.shape[0]
     rows_h, cols_h = rows.tolist(), cols.tolist()
     parts = [score_partials_reference(
         cand6[b], None if idx is None else idx[b], n_cand[b], px[b], py[b],
-        n_pix[b], cache[b], 0, rows_h[b], cols_h[b], z_occ_max_dis,
+        n_pix[b], cache[b], int(row0), rows_h[b], cols_h[b], z_occ_max_dis,
         max_dist_penalty, obstacle_min_dist) for b in range(B)]
     return tuple(torch.stack(p) for p in zip(*parts))

@@ -21,8 +21,17 @@ all lanes in one CalcScore launch.
 The reference package's execution strategies ``prefeaturize`` and
 ``scan_unroll`` (which give identical outputs there) do not apply to a
 frame loop and are ignored.  ``match.polish_pose`` polishes both
-measurement paths after fusion (match/polish.py); the tp/mp sharding
-arguments are not ported yet and raise NotImplementedError.
+measurement paths after fusion (match/polish.py).
+
+The tp/mp arguments (runtime/collectives.Axis, one per rank of the
+sharded runners in runtime/shard.py) shard the step over ranks: with
+``tp_axis`` each rank holds a block of the map lines, its candidates
+are fused with one psum (match/associate.fuse) and the overflow flag
+is a pmax; with ``mp_axis`` each rank holds a row block of the field,
+scores every candidate unpruned over it, and the four partials are
+psummed.  Both default to ``Axis.none()``; a one-rank axis is the
+unsharded step (one rank of an mp mesh holds the whole field, so it
+scores pruned and may polish).
 
 Faithful-mode quirks (config.faithful):
   * odometry rotation bug ScanPose.y = ty*sind(th) + ty*cosd(th)
@@ -45,6 +54,7 @@ from lsdtpu_torch.config import DEFAULT, EngineConfig
 from lsdtpu_torch.filter import ukf as fukf
 from lsdtpu_torch.match import associate as assoc
 from lsdtpu_torch.match import polish
+from lsdtpu_torch.runtime.collectives import Axis
 from lsdtpu_torch.scan.featurize import featurize
 
 
@@ -144,8 +154,8 @@ def featurize_stage(frame_inputs, ctx: MapContext,
 
 def localization_step(state: TrackState, frame_inputs, ctx: MapContext,
                       cfg: EngineConfig = DEFAULT,
-                      tp_axis: Optional[str] = None,
-                      mp_axis: Optional[str] = None,
+                      tp_axis: Axis = Axis.none(),
+                      mp_axis: Axis = Axis.none(),
                       coarse=None) -> Tuple[TrackState, dict]:
     """One frame: featurize + associate + fuse + UKF + state update.
 
@@ -185,14 +195,19 @@ def batched_cfg(cfg: EngineConfig) -> EngineConfig:
 
 def match_stage(state: TrackState, fs, frame_inputs, ctx: MapContext,
                 cfg: EngineConfig = DEFAULT,
-                tp_axis: Optional[str] = None,
-                mp_axis: Optional[str] = None,
+                tp_axis: Axis = Axis.none(),
+                mp_axis: Axis = Axis.none(),
                 coarse=None, cand=None) -> Tuple[TrackState, dict]:
     """Association + fusion + UKF + tracking state (L4/L5 of the
     reference) on precomputed ScanFeatures.  cand: optional
-    pre-generated Candidates for this (state, fs) pair."""
-    if tp_axis is not None or mp_axis is not None:
-        raise NotImplementedError("tp/mp sharding is not ported yet")
+    pre-generated Candidates for this (state, fs) pair.  tp_axis: ctx
+    holds this rank's block of the map lines; mp_axis: ctx.cache holds
+    this rank's row block of the field (module docstring)."""
+    if cfg.match.polish_pose and mp_axis.size > 1:
+        raise ValueError(
+            "match.polish_pose requires a full-field cache view and is "
+            "not supported under map-block (mp) sharding; disable the "
+            "polish or use a (dp, tp) mesh")
     ranges, angles, valid, n, odom_prev, odom_cur = frame_inputs
     lanes = tuple(ranges.shape[:-1])
     sh = cfg.shapes
@@ -233,28 +248,48 @@ def match_stage(state: TrackState, fs, frame_inputs, ctx: MapContext,
             ignore_scan_length=cfg.match.ignore_scan_length,
             scan_to_map_diff=cfg.match.scan_to_map_diff,
             max_esti_dist=cfg.match.max_esti_dist)
-    scores = assoc.score_candidates(
-        cand, fs.pixels, fs.pixels_mask, ctx.cache,
-        rows=ctx.rows, cols=ctx.cols,
-        z_occ_max_dis=cfg.map.z_occ_max_dis,
-        max_dist_penalty=cfg.match.max_dist_penalty,
-        valid_ratio=cfg.match.valid_ratio,
-        dynamic_chunks=cfg.match.score_dynamic_chunks,
-        obstacle_tolerance=cfg.match.obstacle_tolerance,
-        obstacle_min_dist=cfg.match.obstacle_min_dist,
-        coarse=coarse if cfg.match.prune else None,
-        prune_accept=cfg.match.score_accept,
-        prune_block=cfg.match.prune_block,
-        prune_group=cfg.match.prune_group,
-        prune_min_live=cfg.match.prune_min_live,
-        window=cfg.match.score_window,
-        window_center=state.last_pose[..., :2],
-        scan_radius=scan_radius,
-        window_gate=cfg.match.max_esti_dist)
+    if mp_axis.size > 1:
+        # map-block sharding: this rank owns rows [row0, row0 + block_h)
+        # of the field; the psum of the additive partials is the whole
+        # field's (one lane-batched launch a frame per rank).  One rank
+        # holds the whole field and takes the pruned scorer below, whose
+        # scores are the same.
+        parts = assoc.score_candidates_partial(
+            cand, fs.pixels, fs.pixels_mask, ctx.cache,
+            mp_axis.index * ctx.cache.shape[-2], ctx.rows, ctx.cols,
+            z_occ_max_dis=cfg.map.z_occ_max_dis,
+            max_dist_penalty=cfg.match.max_dist_penalty,
+            obstacle_min_dist=cfg.match.obstacle_min_dist)
+        sum_d, n_valid, sum_far, n_far = (mp_axis.psum(p) for p in parts)
+        scores = assoc.finalize_scores(
+            cand, sum_d, n_valid, fs.pixels_mask.sum(-1).to(dt),
+            sum_far=sum_far, n_far=n_far,
+            max_dist_penalty=cfg.match.max_dist_penalty,
+            valid_ratio=cfg.match.valid_ratio,
+            obstacle_tolerance=cfg.match.obstacle_tolerance)
+    else:
+        scores = assoc.score_candidates(
+            cand, fs.pixels, fs.pixels_mask, ctx.cache,
+            rows=ctx.rows, cols=ctx.cols,
+            z_occ_max_dis=cfg.map.z_occ_max_dis,
+            max_dist_penalty=cfg.match.max_dist_penalty,
+            valid_ratio=cfg.match.valid_ratio,
+            dynamic_chunks=cfg.match.score_dynamic_chunks,
+            obstacle_tolerance=cfg.match.obstacle_tolerance,
+            obstacle_min_dist=cfg.match.obstacle_min_dist,
+            coarse=coarse if cfg.match.prune else None,
+            prune_accept=cfg.match.score_accept,
+            prune_block=cfg.match.prune_block,
+            prune_group=cfg.match.prune_group,
+            prune_min_live=cfg.match.prune_min_live,
+            window=cfg.match.score_window,
+            window_center=state.last_pose[..., :2],
+            scan_radius=scan_radius,
+            window_gate=cfg.match.max_esti_dist)
     # faithful: a perfect (score 0) candidate NaN-poisons the fused pose
     # exactly like the reference's inf weight (myFA.cpp:161)
     pose_w, fused_score, pose_min, min_score, n_acc = assoc.fuse(
-        cand, scores, cfg.match.score_accept,
+        cand, scores, cfg.match.score_accept, axis_name=tp_axis,
         score_floor=0.0 if cfg.faithful else 1e-6)
     if cfg.match.polish_pose:
         # sub-pixel Gauss-Newton polish of both measurement paths
@@ -280,7 +315,7 @@ def match_stage(state: TrackState, fs, frame_inputs, ctx: MapContext,
             cand, scores, pose_min, min_score,
             min_dist=cfg.match.max_esti_dist,
             margin=cfg.match.relock_margin,
-            score_accept=cfg.match.score_accept)
+            score_accept=cfg.match.score_accept, axis_name=tp_axis)
         # a deferred relock behaves like a lost frame: the chain stays at
         # the sentinel and retries globally next frame
         deferred = hmm_first & ~lost & ambig
@@ -329,13 +364,16 @@ def match_stage(state: TrackState, fs, frame_inputs, ctx: MapContext,
         kalman_x=new_x, kalman_P=new_P, last_pose=new_x[..., :3],
         ang_sum=state.ang_sum + ang_diff, ang_cnt=state.ang_cnt + 1,
         is_offset=is_offset, frame=frame, lost_streak=streak)
+    overflow = (cand.count > cand.mask.shape[-1]) | fs.overflow
+    # candidate counts are per map-line block; an overflow on any rank is
+    # every rank's
+    overflow = tp_axis.pmax(overflow)
     outputs = {
         "pose": new_x[..., :3],
         "score": out_score,
         "n_candidates": n_acc,
         "n_scan_lines": fs.lines_mask.sum(-1),
-        "candidate_overflow": (cand.count > cand.mask.shape[-1])
-        | fs.overflow,
+        "candidate_overflow": overflow,
         "coasting": coast,
         "relock_deferred": deferred,
         # the FA measurement (weighted-mean pose) and the rotated
@@ -350,19 +388,22 @@ _FRAME_KEYS = ("ranges", "angles", "valid", "n", "odom_prev", "odom_cur")
 
 
 def rollout(fr: dict, ctx: MapContext, cfg: EngineConfig,
-            lanes: Optional[int] = None) -> dict:
+            lanes: Optional[int] = None, tp_axis: Axis = Axis.none(),
+            mp_axis: Axis = Axis.none()) -> dict:
     """The frame loop over tensors on the context's device: fr holds the
     stacked frames with the frame axis first ((F, ...), or (F, B, ...)
-    for ``lanes`` = B).  Returns the stacked outputs, frame axis first."""
+    for ``lanes`` = B).  Returns the stacked outputs, frame axis first.
+    tp_axis/mp_axis: this rank's shard of a sharded rollout (mp scores
+    unpruned: the pruning field needs the whole field)."""
     state = init_state(fr["ranges"].dtype, fr["ranges"].device, lanes)
-    coarse = prepare_coarse(ctx, cfg)
+    coarse = None if mp_axis.size > 1 else prepare_coarse(ctx, cfg)
     outs = []
     for f in range(fr["ranges"].shape[0]):
         fr_f = {k: v[f] for k, v in fr.items()}
         state = reset_carry(state, fr_f)
         state, out = localization_step(
             state, tuple(fr_f[k] for k in _FRAME_KEYS), ctx, cfg,
-            coarse=coarse)
+            tp_axis=tp_axis, mp_axis=mp_axis, coarse=coarse)
         outs.append(out)
     return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
 

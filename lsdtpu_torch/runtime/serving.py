@@ -12,6 +12,14 @@ TrackState and the per-slot pruning fields live on the device between
 ticks; joining/leaving sessions swaps a slot's map context and resets
 its state.  Slots without a submitted scan (idle, or never opened) run
 the step on an empty scan and keep their state.
+
+With ``mesh`` (make_pool_mesh: a 1-D mesh of ranks, each with its own
+card or sharing one) the slot axis is spread over the ranks, as in a
+multi-controller pool: every rank makes the same calls and holds the same
+host-side slot table, keeps the device state and fields of its own
+block of slots only, steps that block as its lanes, and one all_gather a
+tick gives every rank every slot's outputs.  The capacity is padded to a
+multiple of the mesh; the padding slots are never handed out.
 """
 
 from __future__ import annotations
@@ -26,10 +34,19 @@ from lsdtpu_torch import geometry as geo
 from lsdtpu_torch import resolve_device
 from lsdtpu_torch.config import DEFAULT, EngineConfig
 from lsdtpu_torch.match.associate import coarse_field, quantize_cache
+from lsdtpu_torch.runtime.collectives import Axis, gather_lanes, rank_slice
+from lsdtpu_torch.runtime.distributed import DP_AXIS
 from lsdtpu_torch.runtime.loop import (MapContext, TrackState, batched_cfg,
                                        init_state, localization_step,
                                        numpy_dtype, torch_dtype)
 from lsdtpu_torch.runtime.online import to_host
+
+
+def make_pool_mesh(n_devices: Optional[int] = None, device="cuda"):
+    """1-D (dp,) mesh over the ranks for a pool's slot axis (no
+    collective but the outputs' all_gather: slots are independent)."""
+    from lsdtpu_torch.runtime.shard import make_mesh_1d
+    return make_mesh_1d(n_devices, device)
 
 
 def _put(dst, slot: int, val) -> None:
@@ -62,20 +79,22 @@ class SessionPool:
     >>> pool.submit_scan("r1", ranges, angles, odom)
     >>> out = pool.step()["r1"]                              # numpy dict
 
-    ``mesh`` (the slot axis spread over several cards) belongs to the
-    multi-device runners, which are not ported yet."""
+    ``mesh``: a 1-D mesh (make_pool_mesh); the slots spread over its ranks
+    (module docstring)."""
 
     def __init__(self, capacity: int, canvas_hw, cfg: EngineConfig = DEFAULT,
                  dtype=np.float32, device="cuda", mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "SessionPool(mesh=...) waits for the multi-device runners "
-                "(ROADMAP.md Queue 1, \"Multi-device runners\")")
         self.capacity = capacity
         self.cfg = cfg
         self.dtype = numpy_dtype(dtype).type
         self.device = resolve_device(device)
         self.H, self.W = canvas_hw
+        self._axis = Axis.none() if mesh is None else Axis.of(mesh, DP_AXIS)
+        n = self._axis.size
+        # the slots padded to the mesh, and this rank's block of them
+        self._n_slots = -(-capacity // n) * n
+        self._mine = rank_slice(self._n_slots, self._axis)
+        lanes = self._mine.stop - self._mine.start
         dt = torch_dtype(dtype)
         dev = self.device
         M = cfg.shapes.max_map_lines
@@ -85,23 +104,24 @@ class SessionPool:
         self._quantize = lambda c: quantize_cache(
             c, cfg.match.cache_dtype, z, float_dtype=dt)
         self._ctxs = MapContext(
-            lines=torch.zeros((capacity, M, 10), dtype=dt, device=dev),
-            lines_mask=torch.zeros((capacity, M), dtype=torch.bool,
+            lines=torch.zeros((lanes, M, 10), dtype=dt, device=dev),
+            lines_mask=torch.zeros((lanes, M), dtype=torch.bool,
                                    device=dev),
-            cache=self._quantize(torch.full((capacity, self.H, self.W), z,
+            cache=self._quantize(torch.full((lanes, self.H, self.W), z,
                                             dtype=dt, device=dev)
                                  ).contiguous(),
-            rows=torch.zeros(capacity, dtype=torch.int32, device=dev),
-            cols=torch.zeros(capacity, dtype=torch.int32, device=dev),
-            resol=torch.ones(capacity, dtype=dt, device=dev),
-            ori_x=torch.zeros(capacity, dtype=dt, device=dev),
-            ori_y=torch.zeros(capacity, dtype=dt, device=dev))
-        self._states = init_state(dt, dev, lanes=capacity)
+            rows=torch.zeros(lanes, dtype=torch.int32, device=dev),
+            cols=torch.zeros(lanes, dtype=torch.int32, device=dev),
+            resol=torch.ones(lanes, dtype=dt, device=dev),
+            ori_x=torch.zeros(lanes, dtype=dt, device=dev),
+            ori_y=torch.zeros(lanes, dtype=dt, device=dev))
+        self._states = init_state(dt, dev, lanes=lanes)
         # per-slot pruning fields (match/associate.coarse_field),
         # recomputed only when a slot's map changes - never per tick
         self._coarse = (coarse_field(self._ctxs.cache, cfg.match.prune_block)
                         if cfg.match.prune else None)
-        self._free: List[int] = list(range(capacity))
+        # only the asked capacity is handed out (never a padding slot)
+        self._free: List[int] = list(range(self.capacity))
         self._sessions: Dict[str, int] = {}
         self._prev_odom: Dict[str, np.ndarray] = {}
         self._pending: Dict[int, tuple] = {}
@@ -124,6 +144,10 @@ class SessionPool:
             raise ValueError(f"map has {k} lines > "
                              f"shapes.max_map_lines={M}; raise the cap")
         slot = self._free.pop(0)
+        self._sessions[sid] = slot
+        if not self._mine.start <= slot < self._mine.stop:
+            return            # another rank's slot: the table only
+        slot -= self._mine.start
         dev = self.device
         c = self._ctxs
         dt = c.lines.dtype
@@ -145,7 +169,6 @@ class SessionPool:
             _put(self._coarse, slot,
                  coarse_field(cache, self.cfg.match.prune_block))
         self._reset_slot(slot)
-        self._sessions[sid] = slot
 
     def close_session(self, sid: str) -> None:
         slot = self._sessions.pop(sid)
@@ -192,11 +215,16 @@ class SessionPool:
         if not self._pending:
             return {}
         N = self.cfg.shapes.points_per_scan
-        B = self.capacity
-        # per slot: ranges, angles (zero-padded to N), odom_prev,
-        # odom_cur, the point count and the active flag (both exact)
+        lo, hi = self._mine.start, self._mine.stop
+        B = hi - lo
+        # per slot of this rank: ranges, angles (zero-padded to N),
+        # odom_prev, odom_cur, the point count and the active flag (both
+        # exact)
         buf = np.zeros((B, 2 * N + 8), self.dtype)
         for slot, (r, a, n, p, c) in self._pending.items():
+            if not lo <= slot < hi:
+                continue
+            slot -= lo
             buf[slot, :n] = r
             buf[slot, N:N + n] = a
             buf[slot, 2 * N:2 * N + 3] = p
@@ -211,7 +239,7 @@ class SessionPool:
         self._states, outs = _pool_step(self._states, inputs, self._ctxs,
                                         t[:, 2 * N + 7] > 0, self.cfg,
                                         self._coarse)
-        host = to_host(outs)
+        host = to_host(gather_lanes(self._axis, outs))
         results = {sid: {k: v[slot] for k, v in host.items()}
                    for sid, slot in self._sessions.items()
                    if slot in self._pending}

@@ -11,9 +11,11 @@ checkout, parent, change, change, parent, to compare them on one card.
 The cases, f32 on the card, grid on the host -> lines on the host, each
 after one warm-up run: wave growth on the data1-sized scene, then wave
 and FIFO growth on the same scene with chip_smoke.py's round pillars;
-for each the median of --repeats runs, the seed walk's host syncs and
-the line count.  The last line of the output is one JSON object.  Exits
-2 without a card.
+for each the median of --repeats runs (wall ms and the process's host
+CPU ms), the seed walk's host syncs and the line count, and from one
+more run under torch.profiler the device operations it launched and
+their device-busy ms (counts that host noise cannot move).  The last
+line of the output is one JSON object.  Exits 2 without a card.
 """
 
 from __future__ import annotations
@@ -68,18 +70,24 @@ def main():
                 return art.lines_info.cpu().numpy()
 
             run(MapPrepStats())
-            times = []
+            times, cpu = [], []
             for _ in range(args.repeats):
                 st = MapPrepStats()
                 torch.cuda.synchronize()
-                t0 = time.perf_counter()
+                t0, c0 = time.perf_counter(), time.process_time()
                 lines = run(st)
                 times.append((time.perf_counter() - t0) * 1e3)
+                cpu.append((time.process_time() - c0) * 1e3)
+            _wall, acts = cs.device_profile(lambda: run(MapPrepStats()))
             case = dict(name=f"{growth}_pillars{pillars}",
                         median_ms=float(np.median(times)), min_ms=min(times),
-                        max_ms=max(times), times_ms=times, syncs=st.syncs,
+                        max_ms=max(times), times_ms=times,
+                        host_cpu_ms=float(np.median(cpu)), syncs=st.syncs,
                         seeds=st.seeds, nfa_calls=st.nfa_calls,
-                        lines=len(lines))
+                        lines=len(lines),
+                        device_ops=sum(v[0] for v in acts.values()),
+                        device_busy_ms=sum(v[1] for v in acts.values())
+                        / 1e3)
             cs.phase("mapprep_ab", label=args.label, card=repr(smi), **case)
             cases.append(case)
     print(smi, flush=True)

@@ -19,6 +19,7 @@ from lsdtpu.scan.featurize import featurize as jfeat
 from lsdtpu_torch.io import synth
 from lsdtpu_torch.mapprep.distance import create_map_cache
 from lsdtpu_torch.match import associate as tas
+from lsdtpu_torch.runtime.collectives import Axis
 from lsdtpu_torch.runtime import loop as tloop
 
 from torch_parity import frames, np_, port_candidates, scene
@@ -211,8 +212,9 @@ def test_fuse_perfect_score_nan_and_floor():
 
 def test_unported_options_raise():
     """Compressed fields and windows are ported (test_torch_cache_dtype.py,
-    test_torch_window.py); an unknown storage mode and tp sharding
-    raise."""
+    test_torch_window.py); an unknown storage mode raises.  tp sharding is
+    ported (tests/test_torch_shard.py): fuse over a one-rank axis is the
+    unsharded fuse bit for bit."""
     cache = torch.zeros((4, 4))
     for dt, want in (("bf16", torch.bfloat16), ("u16", torch.uint16),
                      ("u8", torch.uint8)):
@@ -223,5 +225,7 @@ def test_unported_options_raise():
     cand = tas.Candidates(*(torch.zeros(4) for _ in range(6)),
                           torch.zeros((4, 3)), torch.ones(4, dtype=torch.bool),
                           torch.tensor(4))
-    with pytest.raises(NotImplementedError):
-        tas.fuse(cand, scores, axis_name="tp")
+    for a, b in zip(tas.fuse(cand, scores, axis_name=Axis.none()),
+                    tas.fuse(cand, scores)):
+        assert torch.equal(a.isnan(), b.isnan())
+        assert torch.equal(a.nan_to_num(), b.nan_to_num())

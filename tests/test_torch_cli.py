@@ -222,6 +222,47 @@ def test_batch_equals_library(env, capsys, concat):
     assert errs[-1]["total_scans"] == 2 * F
 
 
+def test_prepare_map_tpu_sharded(env, capsys):
+    """--mapprep tpu-sharded on one rank (no torchrun): the sharded
+    artifacts, under a key of their own, equal the single-card ones (one
+    rank's block is the whole field)."""
+    rc, recs, _, _ = _cli(capsys, ["prepare-map", *_args(env), "--mapprep",
+                                   "tpu-sharded"])
+    assert rc == 0
+    _, cache_dir, ds = env
+    got = prepare_map_cached(ds.map_value, ds.param.resol, cache_dir=cache_dir,
+                             device="cpu", backend="tpu-sharded")
+    want = _artifacts(env, growth="wave")
+    assert recs[0]["lines"] == len(got[0]) == len(want[0])
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert len(os.listdir(cache_dir)) >= 2      # two keys, two files
+
+
+def test_batch_concat_temporal_equals_library(env, capsys, tmp_path):
+    """batch --concat --temporal 2: the records of run_sequence_temporal
+    over the concatenated stream (2 segments, the lanes of one rollout,
+    longer than the default warmup of 24 frames)."""
+    from lsdtpu_torch.runtime.temporal import run_sequence_temporal
+    ds = write_dataset(tmp_path, 1, F=26)
+    data = str(tmp_path)
+    rc, recs, errs, _ = _cli(capsys, ["batch", "--data", data, data,
+                                      *_args(env)[2:], "--concat",
+                                      "--temporal", "2"])
+    assert rc == 0
+    ds = load_dataset(data)
+    lines, cache = prepare_map_cached(ds.map_value, ds.param.resol,
+                                      cache_dir=env[1], device="cpu")
+    ctx = loop.make_map_context(lines, cache, ds.param.resol, ds.param.ori_x,
+                                ds.param.ori_y, device="cpu")
+    fr, bounds = batch.stack_concat([ds, ds])
+    sc = run_sequence_temporal(fr, ctx, n_segments=2, device="cpu")["score"]
+    assert recs == [{"seq": data, "frames": 26,
+                     "tracked": int(np.isfinite(sc[a:b]).sum())}
+                    for a, b in zip(bounds[:-1], bounds[1:])]
+    assert errs[-1]["total_scans"] == 52
+
+
 def test_serve_equals_library(env, capsys):
     data, _, ds = env
     rc, recs, errs, _ = _cli(capsys, ["serve", "--data", data, data,
@@ -331,8 +372,8 @@ def test_without_a_card_exits_nonzero(env, capsys, argv):
 
 @pytest.mark.parametrize("argv,msg", [
     (["run", "--mapprep", "oracle"], "oracle"),
-    (["prepare-map", "--mapprep", "tpu-sharded"], "multi-device runners"),
-    (["batch", "--concat", "--temporal", "2"], "multi-device runners"),
+    (["prepare-map", "--mapprep", "oracle"], "oracle"),
+    (["batch", "--temporal", "2"], "requires --concat"),
     (["bench"], "GPU bench entry")])
 def test_unported_options_exit_2(env, capsys, argv, msg):
     extra = [] if argv[0] == "bench" else ["--data", env[0]]

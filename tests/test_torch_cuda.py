@@ -20,7 +20,9 @@ growth in f64: the same region, queue and count, reg_deg within 1e-12
 (only atan2 differs: both read the same sin/cos tables); streaming on
 the card bitwise equal to run_sequence there; f64 sessions card vs CPU
 with identical decisions (tracking poses within 1e-6 px, the legacy
-first-minimum pose identical)."""
+first-minimum pose identical); a row block's counts (NFA and CalcScore)
+exact, and four row blocks' f32 sums within rel 1e-5 of the whole
+field's (four partial sums added: another summation order)."""
 
 import numpy as np
 import pytest
@@ -212,6 +214,32 @@ def test_nfa_kernel_matches_plain_on_card(dtype):
         for g, w in zip(got, want):
             assert g.dtype == torch.int32 and torch.equal(g, w)
         assert int(got[0].max()) > 0
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("row0,block,n_rows", [
+    (0, None, None), (100, 100, 293), (200, 100, 293), (147, 100, 200),
+    (250, 100, 260), (280, 50, 270)])
+def test_nfa_kernel_row_block_matches_plain_on_card(dtype, row0, block,
+                                                    n_rows):
+    """rect_counts on a row block (row0 > 0, a block that crosses n_rows,
+    one past it) equals its plain version, counts exact; row0 = 0 with
+    n_rows = H is the whole-field launch."""
+    _need_card()
+    from lsdtpu_torch.ops import nfa as onfa
+    deg, sc = _nfa_cases(dtype)[1]
+    blk = deg[row0:] if block is None else deg[row0:row0 + block]
+    blk = blk.contiguous()
+    before = onfa.rect_counts.launches
+    got = onfa.rect_counts(blk, sc, row0, n_rows)
+    torch.cuda.synchronize()
+    assert onfa.rect_counts.launches == before + 1
+    want = onfa.rect_counts_reference(blk, sc, row0, n_rows)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    if block is None:
+        for g, w in zip(got, onfa.rect_counts(deg, sc)):
+            assert torch.equal(g, w)
 
 
 def _nfa_rect(x1, y1, x2, y2, wid, dtype):
@@ -702,6 +730,45 @@ def test_batched_kernel_matches_plain_and_single_lanes_on_card(storage,
     torch.cuda.synchronize()
     for a, g in zip(again, got):
         assert torch.equal(a, g)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("storage", ["f32", "u16"])
+def test_batched_kernel_row_block_matches_plain_on_card(dtype, storage):
+    """The lane-batched launch over the row block [row0, row0 + 245) of
+    every lane's field (a map-block-sharded rank's launch; lanes whose
+    map ends inside or before the block) equals its plain version, and the
+    four blocks' partials add up to the whole canvas's (counts exact)."""
+    _need_card()
+    from lsdtpu_torch.ops import score as sc
+    args = _lane_args(dtype, storage, False)
+    field = args[6]
+    H = field.shape[1]
+    bh = -(-H // 4)
+    whole = sc.score_partials_batched(*args)
+    acc = [torch.zeros_like(w) for w in whole]
+    for row0 in range(0, H, bh):
+        blk = field[:, row0:row0 + bh].contiguous()
+        a = (*args[:6], blk, *args[7:])
+        before = sc.score_partials_batched.launches
+        got = sc.score_partials_batched(*a, row0=row0)
+        torch.cuda.synchronize()
+        assert sc.score_partials_batched.launches == before + 1
+        want = sc.score_partials_batched_reference(*a, row0=row0)
+        for i in (1, 3):
+            assert torch.equal(got[i], want[i])
+        for i in (0, 2):
+            torch.testing.assert_close(got[i], want[i], rtol=_TOL[dtype][0],
+                                       atol=_TOL[dtype][1])
+        acc = [x + g for x, g in zip(acc, got)]
+    for i in (1, 3):
+        assert torch.equal(acc[i], whole[i])
+    # four block sums added against one sum over all pixels: another
+    # order, so f32 carries a few more ulps than one launch's tier
+    tol = (1e-5, 1e-5) if dtype == np.float32 else _TOL[dtype]
+    for i in (0, 2):
+        torch.testing.assert_close(acc[i], whole[i], rtol=tol[0],
+                                   atol=tol[1])
 
 
 def test_batched_kernel_rejects_bad_inputs_on_card():

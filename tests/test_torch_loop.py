@@ -9,6 +9,7 @@ torch's CPU sin/cos/summation order).  f32 - identical n_candidates and
 tracked/lost pattern."""
 
 import dataclasses
+import types
 
 import jax
 import jax.numpy as jnp
@@ -20,6 +21,7 @@ from lsdtpu.runtime import loop as jloop
 from lsdtpu_torch.config import DEFAULT
 from lsdtpu_torch.runtime import convert
 from lsdtpu_torch.runtime import loop as tloop
+from lsdtpu_torch.runtime.collectives import Axis
 
 from torch_parity import contexts, frame_inputs, frames, np_, scene
 
@@ -135,8 +137,11 @@ def test_default_device_is_the_card():
 
 
 def test_unported_options_raise():
-    """tp/mp sharding is not ported and raises; match.polish_pose is
-    ported (tests/test_torch_polish.py) and runs."""
+    """match.polish_pose is ported (tests/test_torch_polish.py) and runs;
+    tp/mp sharding is ported (tests/test_torch_shard.py): a step over
+    one-rank axes gives the unsharded step's outputs, and the polish over
+    a row block of the field (an mp axis of two ranks) raises, as in the
+    reference package."""
     _, tctx = contexts(0)
     fr = frames(0)
     cfg = dataclasses.replace(DEFAULT, match=dataclasses.replace(
@@ -144,6 +149,14 @@ def test_unported_options_raise():
     out = tloop.run_sequence(fr, tctx, cfg, device="cpu")
     assert torch.isfinite(out["score"]).all()
     st = tloop.init_state(torch.float64, "cpu")
-    for axis in ({"tp_axis": "tp"}, {"mp_axis": "mp"}):
-        with pytest.raises(NotImplementedError):
-            tloop.localization_step(st, frame_inputs(fr, 0)[1], tctx, **axis)
+    inputs = frame_inputs(fr, 0)[1]
+    _, want = tloop.localization_step(st, inputs, tctx)
+    for axis in ({"tp_axis": Axis.none()}, {"mp_axis": Axis.none()}):
+        _, got = tloop.localization_step(st, inputs, tctx, **axis)
+        for k in want:
+            assert torch.equal(got[k].isnan(), want[k].isnan()), k
+            assert torch.equal(got[k].nan_to_num(), want[k].nan_to_num()), k
+    # the guard raises before any collective, so a stand-in axis will do
+    two_ranks = types.SimpleNamespace(size=2, index=0)
+    with pytest.raises(ValueError, match="polish_pose"):
+        tloop.localization_step(st, inputs, tctx, cfg, mp_axis=two_ranks)

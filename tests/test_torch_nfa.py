@@ -95,6 +95,38 @@ def test_counts_f32_equal_jax(deg_map):
     np.testing.assert_array_equal(b.numpy(), want[:, 1])
 
 
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("row0,block,n_rows", [
+    (0, 48, None), (16, 16, 48), (32, 16, 48), (20, 24, 37), (40, 16, 44),
+    (5, 11, 9)])
+def test_row_block_counts_equal_jax(deg_map, dtype, row0, block, n_rows):
+    """rect_counts over a row block (row0, n_rows: the sharded map prep's
+    per-rank counts; blocks that cross n_rows and blocks past it) against
+    rect_counts_math with the same row0/n_rows, counts equal; and the
+    blocks of a field add up to its whole-field counts."""
+    d = deg_map.astype(dtype)
+    count = jax.jit(lambda d, s, r0, nr: jops.rect_counts_math(
+        d, [s[i] for i in range(jops.N_SCALARS)], r0, nr))
+    recs = _rects(deg_map, seed=5)
+    sc = np.stack([np.asarray(jnfa.pack_rect_scalars(
+        jax.tree.map(dtype, r))) for r in recs]).astype(dtype)
+    blk = d[row0:row0 + block]
+    nr = 48 if n_rows is None else n_rows
+    want = np.array([[float(v) for v in count(blk, x, row0, nr)]
+                     for x in sc])
+    a, b = tops.rect_counts(torch.from_numpy(blk), torch.from_numpy(sc),
+                            row0, n_rows)
+    np.testing.assert_array_equal(a.numpy(), want[:, 0])
+    np.testing.assert_array_equal(b.numpy(), want[:, 1])
+    # the blocks of the first nr rows add up to that field's counts
+    parts = [tops.rect_counts(torch.from_numpy(d[r:r + block]),
+                              torch.from_numpy(sc), r, nr)
+             for r in range(0, 48, block)]
+    whole = tops.rect_counts(torch.from_numpy(d[:nr]), torch.from_numpy(sc))
+    for i in range(2):
+        assert torch.equal(sum(p[i] for p in parts), whole[i])
+
+
 def test_wrapper_routes_cpu_to_plain_and_checks_inputs(deg_map):
     d = torch.from_numpy(deg_map)
     with np.errstate(all="ignore"):

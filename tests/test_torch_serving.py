@@ -21,8 +21,9 @@ import torch
 from lsdtpu.runtime.serving import SessionPool as JaxPool
 from lsdtpu_torch.config import DEFAULT
 from lsdtpu_torch.runtime.online import OnlineLocalizer
-from lsdtpu_torch.runtime.serving import SessionPool
+from lsdtpu_torch.runtime.serving import SessionPool, make_pool_mesh
 
+import torch_ranks
 from torch_parity import LANES, lane_scenes
 
 NF = 6
@@ -184,9 +185,46 @@ def test_pool_honours_cache_dtype():
 
 
 def test_pool_mesh_and_device():
-    with pytest.raises(NotImplementedError, match="Multi-device runners"):
-        SessionPool(2, CANVAS, device="cpu", mesh=object())
+    """A pool over a one-rank mesh (this process) is the pool without one;
+    the meshed pool over two ranks is test_meshed_pool_matches_pool."""
+    pools = [SessionPool(2, CANVAS, dtype=np.float64, device="cpu",
+                         mesh=mesh)
+             for mesh in (None, make_pool_mesh(device="cpu"))]
+    for pool in pools:
+        pool.open_session("a", *_args(0))
+        pool.submit_scan("a", *_scan(0, 0))
+    got, want = (p.step()["a"] for p in pools[::-1])
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             SessionPool(2, CANVAS)
     assert tuple(LANES[0][1:3]) == CANVAS     # the larger of the two maps
+
+
+def test_meshed_pool_matches_pool(tmp_path):
+    """SessionPool(mesh=...) over two spawned gloo ranks (capacity 3
+    padded to 4 slots, two a rank; the third robot on rank 1) against the
+    same calls on a pool in this process: every rank returns every
+    robot's outputs, poses within 1e-9 px and identical decisions."""
+    robots = dict(ROBOTS, c=(0, 1))
+    sessions = {sid: _args(i) for sid, (i, _f) in robots.items()}
+    ticks = [{sid: _scan(i, f0 + t) for sid, (i, f0) in robots.items()}
+             for t in range(4)]
+    group = torch_ranks.Group(tmp_path, 2, [("pool", dict(
+        capacity=3, canvas=CANVAS, sessions=sessions, ticks=ticks))])
+    pool = SessionPool(3, CANVAS, dtype=np.float64, device="cpu")
+    for sid, args in sessions.items():
+        pool.open_session(sid, *args)
+    want = []
+    for tick in ticks:
+        for sid, scan in tick.items():
+            pool.submit_scan(sid, *scan)
+        want.append(pool.step())
+    for (got,) in group.results():
+        for g, w in zip(got, want):
+            assert sorted(g) == sorted(w) == sorted(robots)
+            for sid in w:
+                _assert_same_decisions(g[sid], w[sid])
+                np.testing.assert_allclose(g[sid]["pose"], w[sid]["pose"],
+                                           rtol=0, atol=1e-9)
