@@ -9,7 +9,9 @@ a synthetic multi-room scene made from a seed, since no dataset is
 mounted on the card's machine: the per-frame localization rollout
 (run_sequence) and map prep (prepare_map: occupancy grid -> LSD map
 lines + distance field), then both together, then the streaming entry
-point (OnlineLocalizer and the ROS adapter).  Phases, each printed on
+point (OnlineLocalizer and the ROS adapter), and on to the CLI, the
+multi-device runners, the numpy oracle's map prep and the bench entry
+point.  Phases, each printed on
 its own line; any failure exits non-zero before the last line:
 
   1. device: the card's name, count and power limit (no card: exit 2);
@@ -104,7 +106,16 @@ its own line; any failure exits non-zero before the last line:
      holding the CalcScore kernel), cli_batch (two lanes, and --concat),
      cli_serve (two robots), cli_viz (the PNGs open); then
      `python -m lsdtpu_torch.cli run` in a process of its own; every
-     kernel's launches counted from 0 around each command;
+     kernel's launches counted from 0 around each command; then (slice
+     9) oracle_mapprep - `prepare-map --mapprep oracle` and
+     OnlineLocalizer(mapprep="oracle").set_map on the card give exactly
+     the numpy oracle's lines and field (f64, and f32 in the session),
+     the oracle's host time, and a streaming pass over them tracking
+     every frame; and bench - lsdtpu_torch.bench.main over the dataset
+     directory: its JSON line with bench.py's keys and backend "cuda",
+     every frame tracked, the baseline kind, each of its 10 rollouts
+     bit for bit a plain run_sequence, and frames x 10 CalcScore
+     launches;
  13. the multi-device runners (slice 8): multi_world1 - run_batch_sharded
      (tp) and run_batch_sharded_mapblocks (mp) over one rank (NCCL) on
      two f64 lanes of the two maps, each bitwise run_batch, and the pod
@@ -1885,9 +1896,166 @@ def cli_phases(scene, device, smi, kind):
         phase("cli_module", card=repr(smi), exit_code=res.returncode,
               records=len(res.stdout.splitlines()),
               seconds=round(time.perf_counter() - t0, 2))
+
+        # --- the numpy oracle's map prep, then the bench entry point
+        by_path["oracle_mapprep"] = oracle_mapprep(ds, common, cache_dir,
+                                                   device, smi, kind)
+        by_path["bench"] = bench_phase(data, os.path.join(tmp, "bench"),
+                                       device, smi, kind)
         return by_path
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def oracle_mapprep(ds, common, cache_dir, device, smi, kind):
+    """oracle_mapprep: `prepare-map --mapprep oracle` through the CLI and
+    OnlineLocalizer(mapprep="oracle").set_map on the card give exactly
+    the numpy oracle's lines and field (f64 in the CLI's cache, f32 in
+    the session), then a streaming pass over them tracks every frame.
+    Returns the kernels' launches of the CLI call and the pass."""
+    import torch
+    from lsdtpu_torch.oracle import driver as odrv
+    from lsdtpu_torch.runtime.artifacts import prepare_map_cached
+    from lsdtpu_torch.runtime.online import OnlineLocalizer
+    p = ds.param
+    F = len(ds.frames)
+    t0 = time.perf_counter()
+    want = odrv.prepare_map(ds.map_value, p.resol)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    n_want = len(want.lines_info)
+
+    recs, _err, launches, secs = cli_call(
+        "oracle_mapprep", ["prepare-map", *common, "--mapprep", "oracle"])
+    lines, cache = prepare_map_cached(ds.map_value, p.resol,
+                                      cache_dir=cache_dir,
+                                      dtype=torch.float64, device=device,
+                                      backend="oracle")
+    if not (recs[0]["lines"] == n_want and lines.device.type == "cuda"
+            and torch.equal(lines.cpu(), torch.from_numpy(want.lines_info))
+            and torch.equal(cache.cpu(), torch.from_numpy(want.map_cache))):
+        fail(f"oracle_mapprep: `prepare-map --mapprep oracle` gave "
+             f"{recs[0]['lines']} lines, not the oracle's {n_want} lines "
+             "and field")
+
+    loc = OnlineLocalizer(dtype=np.float32, device=device, mapprep="oracle")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n = loc.set_map(ds.map_value, p.resol, p.ori_x, p.ori_y)
+    torch.cuda.synchronize()
+    set_map_ms = (time.perf_counter() - t0) * 1e3
+    f32 = torch.float32
+    if not (n == n_want and torch.equal(
+            loc.ctx.lines[:n].cpu(),
+            torch.from_numpy(want.lines_info).to(f32))
+            and torch.equal(loc.ctx.cache.cpu(),
+                            torch.from_numpy(want.map_cache).to(f32))):
+        fail("oracle_mapprep: OnlineLocalizer(mapprep='oracle').set_map "
+             "differs from the oracle's arrays cast to float32")
+    wrappers = _wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    got, lat = stream(lambda fr, odom: loc.push_scan(fr[:, 0], fr[:, 1],
+                                                     odom),
+                      ds.frames, ds, range(F))
+    for k, w in wrappers.items():
+        launches[k] += w.launches
+    tracked = int((np.isfinite(got["score"])
+                   & ~np.isnan(got["pose"]).any(1)).sum())
+    if tracked != F or launches["score_partials"] != F:
+        fail(f"oracle_mapprep: the streaming pass tracked {tracked}/{F} "
+             f"with launches {launches}")
+    phase("oracle_mapprep", device=repr(kind), power=repr(smi),
+          lines=n, oracle_host_ms=host_ms, cli_prepare_map_s=secs,
+          set_map_ms=set_map_ms, cli_lines_field_equal=True,
+          session_lines_field_equal_f32=True, scans=F, tracked=tracked,
+          **latency_stats(lat), launches=repr(launches))
+    return launches
+
+
+# bench.py's JSON keys (its result_json and the extras of the final line)
+BENCH_KEYS = (
+    "metric", "value", "unit", "vs_baseline", "n_repeats", "median_ms",
+    "min_ms", "max_ms", "max_scans_per_sec", "baseline_scans_per_sec",
+    "baseline_kind", "baseline_reset_frames", "baseline_note", "backend",
+    "method", "ate_rmse_m", "tracked", "frames")
+
+
+def bench_phase(data, cache_dir, device, smi, kind):
+    """bench: lsdtpu_torch.bench.main over the dataset directory, in this
+    process, every kernel's launch count set to 0 just before and read
+    just after; its JSON line holds bench.py's keys, every frame
+    tracked, and each of its rollouts equals a plain run_sequence on the
+    same data and config bit for bit.  Returns the launches."""
+    import torch
+    from lsdtpu_torch import bench
+    from lsdtpu_torch.io import loaders
+    from lsdtpu_torch.runtime import loop
+    from lsdtpu_torch.runtime.artifacts import prepare_map_cached
+
+    poses = []
+    run_sequence = loop.run_sequence
+
+    def recording(*a, **k):
+        out = run_sequence(*a, **k)
+        poses.append(out["pose"].clone())
+        return out
+
+    wrappers = _wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    out, err = io.StringIO(), io.StringIO()
+    loop.run_sequence = recording
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = bench.main(data=data, device=device.type,
+                            cache_dir=cache_dir)
+    finally:
+        loop.run_sequence = run_sequence
+    seconds = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    lines = [ln for ln in out.getvalue().splitlines() if ln.startswith("{")]
+    if rc != 0 or len(lines) != 1:
+        fail(f"bench: exit {rc}, {len(lines)} JSON lines: "
+             f"{err.getvalue()[-2000:]}")
+    rec = json.loads(lines[0])
+    missing = [k for k in BENCH_KEYS if k not in rec]
+    if missing or rec["backend"] != "cuda":
+        fail(f"bench: keys {missing} missing or backend {rec['backend']!r}")
+    ds = loaders.load_dataset(data)
+    F = len(ds.frames)
+    if not rec["tracked"] == rec["frames"] == F:
+        fail(f"bench: tracked {rec['tracked']} of {rec['frames']} frames")
+    if rec["baseline_kind"] not in ("oracle", "cpp-reference"):
+        fail(f"bench: baseline_kind {rec['baseline_kind']!r}")
+    rollouts = 1 + bench.REPEATS + 1 + bench.RESIDENT_REPEATS
+    if len(poses) != rollouts or launches["score_partials"] != F * rollouts:
+        fail(f"bench: {len(poses)} rollouts (expected {rollouts}), "
+             f"launches {launches}")
+    lines_t, cache_t = prepare_map_cached(
+        ds.map_value, ds.param.resol, cache_dir=cache_dir,
+        dtype=torch.float64, device="cpu", backend="oracle")
+    ctx = loop.make_map_context(lines_t, cache_t, ds.param.resol,
+                                ds.param.ori_x, ds.param.ori_y,
+                                dtype=np.float32, device=device)
+    want = run_sequence(loop.stack_frames(ds, dtype=np.float32), ctx,
+                        bench.bench_cfg(), device=device)["pose"]
+    same = [torch.equal(p_, want) for p_ in poses]
+    if not all(same):
+        fail(f"bench: rollouts {[i for i, s in enumerate(same) if not s]} "
+             "differ from a plain run_sequence")
+    phase("bench", device=repr(kind), power=repr(smi),
+          scans_per_s=rec["value"], median_ms=rec["median_ms"],
+          min_ms=rec["min_ms"], max_ms=rec["max_ms"],
+          vs_baseline=rec["vs_baseline"],
+          baseline_scans_per_s=rec["baseline_scans_per_sec"],
+          baseline_kind=repr(rec["baseline_kind"]),
+          device_resident_ms=rec.get("device_resident_ms"),
+          ate_rmse_m=rec["ate_rmse_m"], tracked=rec["tracked"], frames=F,
+          card=repr(rec["card"]), power_limit=repr(rec["power_limit"]),
+          rollouts=rollouts, poses_equal_run_sequence=True,
+          seconds=round(seconds, 2), launches=repr(launches))
+    return launches
 
 
 MULTI_FRAMES = 100       # multi_world1: frames a lane (2 lanes, f64)

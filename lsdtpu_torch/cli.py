@@ -11,23 +11,24 @@ Subcommands:
   batch        multi-sequence rollout over a lane axis (or --concat, one
                stream over sequences that share a map)
   serve        robot-fleet replay through the multi-session serving pool
-  bench        not ported yet (see below)
+  bench        headline throughput: the data1 rollout timed to value on
+               the card, against the C++ reference or the numpy oracle
+               (lsdtpu_torch/bench.py)
 
 Example:
   python -m lsdtpu_torch.cli run --data DATASET_DIR
   lsdtpu-torch run --data DATASET_DIR --device cpu
 
 The records and summaries carry the reference CLI's keys, names and
-rounding.  Three differences from it:
+rounding.  Two differences from it:
   * --device {cuda,cpu} (default cuda) replaces --backend: asking for
     the card where there is none exits non-zero; nothing falls back to
-    the CPU.
-  * --mapprep offers the port's own map prep: "torch", and "tpu-sharded"
-    (the reference's name: the distance field and the wave LSD sharded
-    over the ranks of the process group); "oracle" (the reference
-    package's numpy oracle) is not part of the port and exits 2.
-  * bench waits for the GPU bench entry (ROADMAP.md Queue 1, "Outside
-    the order"); it exits 2.
+    the CPU, bench included (a failed device probe exits non-zero).
+  * --mapprep "torch" (the default) is the port's own map prep where the
+    reference says "tpu"; "tpu-sharded" (the reference's name: the
+    distance field and the wave LSD sharded over the ranks of the
+    process group) and "oracle" (the port's copy of the numpy oracle,
+    f64 on the host) are as in the reference.
 
 Under torchrun (WORLD_SIZE > 1) every command starts the process group
 first (runtime/distributed.initialize); without it the commands run at
@@ -84,13 +85,6 @@ PRESETS = {
 # fails later with a context-free error.
 OPTIONAL_FIELDS = frozenset({"match.obstacle_min_dist"})
 
-# --mapprep values the port does not offer, with their exit messages
-UNSUPPORTED_MAPPREP = {
-    "oracle": "--mapprep oracle: the numpy oracle belongs to the reference "
-              "package, which the port does not import; use --mapprep torch",
-}
-
-
 def _add_cfg_args(p):
     p.add_argument("--set", action="append", default=[],
                    metavar="PATH=VALUE", dest="overrides",
@@ -110,8 +104,8 @@ def _add_mapprep(p):
                    help="map prep: 'torch', the port's own (on --device); "
                         "'tpu-sharded', the distance field and the wave LSD "
                         "sharded over the ranks of the process group (one "
-                        "rank without torchrun); 'oracle' is the reference "
-                        "package's numpy oracle, not part of the port")
+                        "rank without torchrun); 'oracle', the numpy oracle "
+                        "(reference semantics, f64 on the host)")
     p.add_argument("--cache-dir", default=None, metavar="DIR",
                    help="map-artifact cache directory (default "
                         "~/.cache/lsdtpu_torch; point at a temp dir for "
@@ -184,14 +178,17 @@ def build_cfg(args):
 
 
 def _prepare(args, ds, cfg, z=None, growth=None):
-    """(lines_info, map_cache) tensors on the device: the port's map prep
-    (f32), cached on disk."""
+    """(lines_info, map_cache) tensors on the device, cached on disk: the
+    port's map prep (f32), or the oracle's arrays in its f64 (the map
+    context then casts them once, as the reference CLI does)."""
+    backend = getattr(args, "mapprep", "torch")
     return prepare_map_cached(
         ds.map_value, ds.param.resol,
         z_occ_max_dis=cfg.map.z_occ_max_dis if z is None else z,
         cache_dir=args.cache_dir, device=args.device,
+        dtype=torch.float64 if backend == "oracle" else torch.float32,
         growth=cfg.lsd.growth if growth is None else growth,
-        backend=getattr(args, "mapprep", "torch"))
+        backend=backend)
 
 
 def _context(args, ds, lines, cache, cfg, dtype):
@@ -380,11 +377,9 @@ def cmd_refine(args) -> int:
     return 0
 
 
-def cmd_bench(_args) -> int:
-    print("bench: the GPU bench entry of the port is not written yet "
-          "(ROADMAP.md Queue 1, \"Outside the order\"); bench.py at the "
-          "repository root times the JAX package", file=sys.stderr)
-    return 2
+def cmd_bench(args) -> int:
+    from lsdtpu_torch import bench
+    return bench.main(device=args.device)
 
 
 def cmd_profile(args) -> int:
@@ -540,9 +535,9 @@ def main(argv=None) -> int:
         description="The PyTorch/CUDA port's commands.  --device cuda (the "
                     "default) runs on the card and exits non-zero where "
                     "there is none; --device cpu runs the plain PyTorch "
-                    "path.  --mapprep offers the port's own map prep "
-                    "(torch, tpu-sharded), and bench waits for the GPU "
-                    "bench entry.  Under torchrun the commands start the "
+                    "path.  --mapprep torch is the port's own map prep "
+                    "(the reference's tpu); tpu-sharded and oracle are the "
+                    "reference's.  Under torchrun the commands start the "
                     "process group first.")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="where the port runs: 'cuda' (default; exits "
@@ -573,8 +568,11 @@ def main(argv=None) -> int:
                    help=">1 uses the segment-parallel Schur solver")
     p.set_defaults(fn=cmd_refine)
 
-    p = sub.add_parser("bench", help="headline throughput benchmark (waits "
-                                     "for the GPU bench entry)")
+    p = sub.add_parser(
+        "bench", help="headline throughput benchmark: the data1 rollout "
+                      "timed to value (median of 5) on --device, one JSON "
+                      "line; a failed device probe exits non-zero, never "
+                      "falls back to the CPU (lsdtpu_torch/bench.py)")
     p.set_defaults(fn=cmd_bench)
 
     p = sub.add_parser("profile", help="per-stage timing + device trace")
@@ -621,9 +619,6 @@ def main(argv=None) -> int:
         resolve_device(args.device)
     except RuntimeError as e:
         print(f"lsdtpu-torch: {e}", file=sys.stderr)
-        return 2
-    if getattr(args, "mapprep", "torch") in UNSUPPORTED_MAPPREP:
-        print(UNSUPPORTED_MAPPREP[args.mapprep], file=sys.stderr)
         return 2
     # under torchrun: the process group first (world size 1: nothing)
     distributed.initialize(device=args.device)

@@ -1,0 +1,8 @@
+"""Numpy oracle: exact-semantics CPU re-implementation of the reference
+pipeline (LSD + RDP + FA + UKF), the port's own copy of lsdtpu/oracle/.
+
+It stays scalar numpy on the host on purpose: it is the reference-
+semantics CPU model of the C++ engine, the map prep behind
+``--mapprep oracle`` and ``OnlineLocalizer(mapprep="oracle")``, and the
+fallback baseline that ``lsdtpu_torch.bench`` times.  It imports no
+torch; callers convert at the boundary."""

@@ -13,7 +13,10 @@ written for it work) builds the artifacts over the ranks of the default
 process group: the distance field block by block
 (mapprep/distance_sharded.py, bit for bit the single-card field) and the
 lines by the row-block-sharded wave seed walk (mapprep/lsd_sharded.py),
-under a key of its own.
+under a key of its own.  backend "oracle" runs the port's copy of the
+numpy oracle (oracle/driver.prepare_map, f64 on the host, the reference
+semantics) and casts its arrays to the requested dtype and device, also
+under a key of its own; growth does not apply to it.
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ DEFAULT_CACHE_DIR = os.path.join(os.path.expanduser("~"), ".cache",
 
 # bump when the map-prep semantics change: the key hashes only inputs
 CACHE_VERSION = 2
-BACKENDS = ("torch", "tpu-sharded")
+BACKENDS = ("torch", "tpu-sharded", "oracle")
 SHARDED_MAX_LINES = 1024   # the reference's sharded prep's line cap
 
 
@@ -41,9 +44,10 @@ def _key(map_value: np.ndarray, resol: float, z: float, dtype,
          growth: str = "wave", backend: str = "torch") -> str:
     h = hashlib.sha256()
     h.update(map_value.tobytes())
-    # the sharded build is wave-tier only and ignores growth
+    # the sharded build is wave-tier only and the oracle has one growth
+    # order: neither keys growth
     tag = "torch" if backend == "torch" else f"torch|{backend}"
-    growth = "wave" if backend == "tpu-sharded" else growth
+    growth = growth if backend == "torch" else "wave"
     h.update(f"{map_value.shape}|{resol}|{z}|{tag}|{dtype}|{growth}"
              f"|v{CACHE_VERSION}".encode())
     return h.hexdigest()[:20]
@@ -66,6 +70,18 @@ def _prepare_map_sharded(map_value, resol, z_occ_max_dis, dtype, dev):
     return MapArtifacts(lines_info=lines[:n], map_cache=cache)
 
 
+def _prepare_map_oracle(map_value, resol, z_occ_max_dis, dtype, dev):
+    """The numpy oracle's artifacts (f64 on the host) as tensors of
+    ``dtype`` on ``dev``."""
+    from lsdtpu_torch.mapprep.pipeline import MapArtifacts
+    from lsdtpu_torch.oracle import driver as odrv
+    art = odrv.prepare_map(map_value, float(resol),
+                           z_occ_max_dis=float(z_occ_max_dis))
+    return MapArtifacts(
+        lines_info=torch.from_numpy(art.lines_info).to(dev, dtype),
+        map_cache=torch.from_numpy(art.map_cache).to(dev, dtype))
+
+
 def prepare_map_cached(map_value: np.ndarray, resol: float,
                        z_occ_max_dis: float = 1.0,
                        cache_dir: Optional[str] = None,
@@ -74,9 +90,10 @@ def prepare_map_cached(map_value: np.ndarray, resol: float,
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (lines_info, map_cache) on ``device``, computing them at
     most once per map, growth order and backend: "torch"
-    (mapprep.pipeline.prepare_map) or "tpu-sharded" (over the ranks of
-    the default process group, wave tier; module docstring).  cache_dir
-    None is ~/.cache/lsdtpu_torch."""
+    (mapprep.pipeline.prepare_map), "tpu-sharded" (over the ranks of
+    the default process group, wave tier) or "oracle" (the numpy oracle
+    in f64, growth ignored; module docstring).  cache_dir None is
+    ~/.cache/lsdtpu_torch."""
     if backend not in BACKENDS:
         raise ValueError(f"backend={backend!r}: expected one of {BACKENDS}")
     dev = resolve_device(device)
@@ -91,6 +108,8 @@ def prepare_map_cached(map_value: np.ndarray, resol: float,
     if backend == "tpu-sharded":
         art = _prepare_map_sharded(map_value, resol, z_occ_max_dis, dtype,
                                    dev)
+    elif backend == "oracle":
+        art = _prepare_map_oracle(map_value, resol, z_occ_max_dis, dtype, dev)
     else:
         art = prepare_map(map_value, resol, z_occ_max_dis=z_occ_max_dis,
                           growth=growth, dtype=dtype, device=dev)

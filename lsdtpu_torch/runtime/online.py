@@ -19,7 +19,10 @@ Two matcher generations, mirroring the two reference main programs:
     match/legacy.py, plain PyTorch).
 
 Map prep from a grid (set_map) runs the port's prepare_map on the
-localizer's device (wave growth, float32).
+localizer's device (wave growth, float32), or with mapprep="oracle" the
+numpy oracle on the host (f64, the reference semantics; the counterpart
+of the reference's use_tpu_mapprep=False), its arrays then moved to the
+device.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ from lsdtpu_torch.config import DEFAULT, EngineConfig
 from lsdtpu_torch.eval.ate import pixel_to_world
 from lsdtpu_torch.mapprep.pipeline import prepare_map
 from lsdtpu_torch.match import legacy as mlegacy
+from lsdtpu_torch.oracle import driver as odrv
 from lsdtpu_torch.runtime.checkpoint import load_session, save_state
 from lsdtpu_torch.runtime.loop import (MapContext, TrackState,
                                        featurize_stage, init_state,
@@ -43,6 +47,7 @@ from lsdtpu_torch.runtime.loop import (MapContext, TrackState,
 # the ROS node builds its field with this cap (main_on_linux.cpp:129),
 # and the legacy scorer tests it by equality
 LEGACY_Z_OCC_MAX_DIS = 2.0
+MAPPREPS = ("torch", "oracle")
 
 
 def occupancy_grid_to_map_value(data, width: int, height: int) -> np.ndarray:
@@ -122,11 +127,15 @@ class OnlineLocalizer:
     """
 
     def __init__(self, cfg: EngineConfig = DEFAULT, mode: str = "tracking",
-                 dtype=np.float32, device="cuda"):
+                 dtype=np.float32, device="cuda", mapprep: str = "torch"):
         if mode not in ("tracking", "legacy"):
             raise ValueError(f"unknown mode {mode!r}")
+        if mapprep not in MAPPREPS:
+            raise ValueError(f"mapprep={mapprep!r}: expected one of "
+                             f"{MAPPREPS}")
         self.cfg = cfg
         self.mode = mode
+        self.mapprep = mapprep
         self.dtype = numpy_dtype(dtype).type
         self.device = resolve_device(device)
         self.ctx: Optional[MapContext] = None
@@ -142,12 +151,17 @@ class OnlineLocalizer:
 
     def set_map(self, map_value: np.ndarray, resol: float, ori_x: float,
                 ori_y: float) -> int:
-        """Build the map artifacts (mapCache + LSD lines) on the
-        localizer's device.  Returns #lines."""
+        """Build the map artifacts (mapCache + LSD lines): the port's
+        map prep on the localizer's device, or the numpy oracle on the
+        host (mapprep="oracle").  Returns #lines."""
         z = LEGACY_Z_OCC_MAX_DIS if self.mode == "legacy" else \
             self.cfg.map.z_occ_max_dis
-        art = prepare_map(map_value, resol, z_occ_max_dis=z,
-                          device=self.device)
+        if self.mapprep == "oracle":
+            art = odrv.prepare_map(np.asarray(map_value), resol,
+                                   z_occ_max_dis=z)
+        else:
+            art = prepare_map(map_value, resol, z_occ_max_dis=z,
+                              device=self.device)
         self.set_map_artifacts(art.lines_info, art.map_cache, resol, ori_x,
                                ori_y)
         return int(art.lines_info.shape[0])

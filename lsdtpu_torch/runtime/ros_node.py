@@ -22,7 +22,7 @@ Reference semantics kept exactly:
     unsigned (255->0 unknown, 0->255 free, else->1 occupied,
     main_on_linux.cpp:108-124), builds mapCache with z_occ_max_dis=2 +
     LSD (main_on_linux.cpp:129-133) - map prep on the localizer's
-    device;
+    device, or the numpy oracle's with mapprep="oracle";
   * laserCallback drops while the map is not ready
     (main_on_linux.cpp:50-51) and drops INF readings, reconstructing
     angles incrementally (main_on_linux.cpp:54-64; the compaction bug
@@ -52,9 +52,11 @@ class LsdRosAdapter:
     """The node's behavior over duck-typed ROS messages."""
 
     def __init__(self, cfg: EngineConfig = DEFAULT, mode: str = "legacy",
-                 dtype=np.float32, device="cuda"):
+                 dtype=np.float32, device="cuda", mapprep: str = "torch"):
+        # mapprep: "torch" or "oracle", OnlineLocalizer's switch (the
+        # reference adapter's use_tpu_mapprep)
         self.loc = OnlineLocalizer(cfg=cfg, mode=mode, dtype=dtype,
-                                   device=device)
+                                   device=device, mapprep=mapprep)
         self.mode = mode
         # mapParam global (main_on_linux.cpp:17-19,88-94)
         self._width = 0

@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from lsdtpu import cli as jcli
+from lsdtpu.oracle import driver as odrv
 from lsdtpu_torch import cli
 from lsdtpu_torch.config import DEFAULT
 from lsdtpu_torch.eval import ate
@@ -371,15 +372,83 @@ def test_without_a_card_exits_nonzero(env, capsys, argv):
 
 
 @pytest.mark.parametrize("argv,msg", [
-    (["run", "--mapprep", "oracle"], "oracle"),
-    (["prepare-map", "--mapprep", "oracle"], "oracle"),
-    (["batch", "--temporal", "2"], "requires --concat"),
-    (["bench"], "GPU bench entry")])
+    (["batch", "--temporal", "2"], "requires --concat")])
 def test_unported_options_exit_2(env, capsys, argv, msg):
-    extra = [] if argv[0] == "bench" else ["--data", env[0]]
-    rc, recs, _, err = _cli(capsys, ["--device", "cpu", *argv[:1], *extra,
-                                     *argv[1:]])
+    rc, recs, _, err = _cli(capsys, ["--device", "cpu", *argv[:1], "--data",
+                                     env[0], *argv[1:]])
     assert rc == 2 and recs == [] and msg in err
+
+
+@pytest.mark.parametrize("mode", ["tracking", "legacy"])
+def test_run_mapprep_oracle_equals_jax(env, capsys, mode):
+    """run --mapprep oracle --f64: the records and summary of the JAX
+    CLI's run --mapprep oracle --f64 on the same directory (f64 rollouts
+    on the oracle's artifacts; f32 rollouts of the two packages agree in
+    their decisions only, not in the rounded poses)."""
+    data, cache, _ = env
+    argv = ["run", "--data", data, "--mapprep", "oracle", "--mode", mode,
+            "--frames", "6", "--f64"]
+    rc, jrecs, jerrs, _ = _cli(capsys, [*argv, "--cache-dir",
+                                        cache + "_jax_oracle"],
+                               main=jcli.main)
+    assert rc == 0
+    rc, recs, errs, _ = _cli(capsys, [*argv, "--cache-dir", cache,
+                                      "--device", "cpu"])
+    assert rc == 0
+    assert len(recs) == 6 and recs == jrecs
+    for k in ("frames", "tracked", "ate_rmse_m", "ate_keyframes"):
+        assert errs[-1].get(k) == jerrs[-1].get(k), k
+
+
+def test_prepare_map_oracle_equals_jax(env, capsys, tmp_path):
+    """prepare-map --mapprep oracle --dump: the JAX CLI's line count and
+    the same reference-format files, byte for byte; the cached artifacts
+    are the oracle's f64 arrays."""
+    data, cache, ds = env
+    dumps = [str(tmp_path / "port"), str(tmp_path / "jax")]
+    rc, recs, _, _ = _cli(capsys, ["prepare-map", *_args(env), "--mapprep",
+                                   "oracle", "--dump", dumps[0]])
+    assert rc == 0
+    rc, jrecs, _, _ = _cli(capsys, ["prepare-map", "--data", data,
+                                    "--cache-dir", cache + "_jax_dump",
+                                    "--mapprep", "oracle", "--dump",
+                                    dumps[1]], main=jcli.main)
+    assert rc == 0
+    assert recs[0]["lines"] == jrecs[0]["lines"] > 0
+    assert recs[0]["cache_shape"] == list(jrecs[0]["cache_shape"])
+    for name in ("MaplinesInfo.txt", "mapCache.txt", "MaplineIm.txt"):
+        with open(os.path.join(dumps[0], name), "rb") as a, \
+                open(os.path.join(dumps[1], name), "rb") as b:
+            assert a.read() == b.read(), name
+    want = odrv.prepare_map(ds.map_value, ds.param.resol)
+    lines, field = prepare_map_cached(ds.map_value, ds.param.resol,
+                                      cache_dir=cache, dtype=torch.float64,
+                                      device="cpu", backend="oracle")
+    assert np.array_equal(lines.numpy(), want.lines_info)
+    assert np.array_equal(field.numpy(), want.map_cache)
+
+
+@pytest.mark.parametrize("argv", [
+    ["refine"], ["profile", "--repeats", "1"], ["batch"], ["serve"]])
+def test_mapprep_oracle_every_command(env, capsys, argv):
+    """The other commands that take --mapprep run on the oracle's map."""
+    data, cache, _ = env
+    many = argv[0] in ("batch", "serve")
+    rc, recs, _, _ = _cli(capsys, [
+        argv[0], "--data", *([data, data] if many else [data]),
+        "--cache-dir", cache, "--device", "cpu", "--mapprep", "oracle",
+        *argv[1:]])
+    assert rc == 0 and recs
+    if many:
+        assert [r["frames"] for r in recs] == [F, F]
+
+
+def test_bench_without_a_card_exits_2(capsys):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    rc, recs, _, err = _cli(capsys, ["bench"])
+    assert rc == 2 and recs == []
+    assert "torch.cuda.is_available() is False" in err
 
 
 def test_module_entry_point(env):
