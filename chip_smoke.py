@@ -28,7 +28,14 @@ its own line; any failure exits non-zero before the last line:
   5. rollout: f64 on the card vs the CPU (identical decisions), then f32
      on the card, 3 repeats timed to value, with the kernel's launch
      count checked against one launch per frame (wall-segment lines, as
-     before map prep was ported, so the numbers stay comparable);
+     before map prep was ported, so the numbers stay comparable); then
+     rollout_strategies_f32 - the same 279 frames under each
+     execution strategy (the default loop, the default with the frames on
+     the host, prefeaturize, scan_unroll 8 with and without the batched
+     featurize, scan_unroll 32), 3 runs each in turn (A B C ... A B C):
+     time to value, scans/s, RDP host rounds, one CalcScore launch a
+     frame, the peak device memory, every run bitwise the default's; and
+     the device idle share of PROFILE_FRAMES frames under prefeaturize;
   6. map prep: f64 on the card vs the CPU (the same lines within 1e-6
      px, the distance field bit-exact, one NFA kernel launch per count
      call), f32 on the card timed to value (median of 3) with the seed
@@ -86,7 +93,10 @@ its own line; any failure exits non-zero before the last line:
      two maps, each from its own frame offset): time to value (median of
      3), scans/s,
      one batched CalcScore launch a frame, RDP rounds a frame, the device
-     idle share of the 16-lane batch; f64 lanes against their solo
+     idle share of the 16-lane batch; at 16 and 64 lanes the runs
+     alternate with as many under prefeaturize, bitwise the default's
+     (rollout_strategies_batch_f32, the same numbers as the single
+     sequence's strategies); f64 lanes against their solo
      rollouts on the card (identical decisions, poses within 1e-6 px);
      serving_f32 - a 16-slot SessionPool with 1, 4 and 16 active robots
      (per-tick latency to numpy, scans/s, one launch a tick), a robot
@@ -172,6 +182,7 @@ FRAMES = 279  # data1's sequence length
 REPEATS = 3   # timed f32 rollouts (median reported)
 CODES_FRAMES = 60  # depth of the u16 + window rollout check
 PROFILE_FRAMES = 40  # depth of the profiled f32 rollout
+STRATEGY_REPEATS = 3  # rollout_strategies_f32: alternating runs of each
 PILLARS = 16  # round pillars of the FIFO phases' map (sparse regions)
 FIFO_REPEATS = 3  # timed f32 map preps on the FIFO phases' map
 RTOL = 2e-6   # f32 kernel vs plain: different summation order
@@ -1162,6 +1173,7 @@ BATCH_FRAMES = 100     # batch_f32: frames a lane
 BATCH_REPEATS = 3      # batch_f32: timed runs at each B (median reported)
 BATCH_F64_LANES = 4    # batch_f32: f64 lanes against their solo rollouts
 PROFILE_LANES = 16     # batch_f32: the profiled batch (10 frames)
+STRATEGY_LANES = (16, 64)      # batch_f32: B also timed under prefeaturize
 POOL_CAPACITY = 16     # serving_f32
 POOL_WAVES = (1, 4, 16)        # serving_f32: active sessions
 POOL_TICKS = 25        # serving_f32: timed ticks at each active count
@@ -1295,6 +1307,111 @@ def batch_kernel_case(name, scene, lines, cache64, cfg, device, card,
     return out
 
 
+def host(out):
+    """A rollout's outputs as numpy arrays (the read that ends a run)."""
+    return {k: v.cpu().numpy() for k, v in out.items()}
+
+
+def strategy_runs(runs, reps):
+    """Timed runs to value of each of ``runs`` ({name: a call returning
+    numpy outputs}) in turn (A B C A B C ...), ``reps`` rounds: per name
+    the ms of each run, its CalcScore launches (single-lane, batched),
+    its RDP host rounds, the most device memory allocated above what was
+    resident before it, and the resident bytes.  Fails unless every run
+    equals the first run of the first name bit for bit.  Returns (stats,
+    that first run's outputs)."""
+    import torch
+    from lsdtpu_torch.ops import score as sc
+    from lsdtpu_torch.scan import featurize as fz
+    stats = {n: dict(ms=[], launches=[], rounds=[], peak=0, resident=0)
+             for n in runs}
+    want = None
+    for _ in range(reps):
+        for name, run in runs.items():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            resident = torch.cuda.memory_allocated()
+            sc.score_partials.launches = 0
+            sc.score_partials_batched.launches = 0
+            fz._rdp_rounds.rounds = 0
+            t0 = time.perf_counter()
+            out = run()
+            ms = (time.perf_counter() - t0) * 1e3
+            st = stats[name]
+            st["ms"].append(ms)
+            st["launches"].append((sc.score_partials.launches,
+                                   sc.score_partials_batched.launches))
+            st["rounds"].append(fz._rdp_rounds.rounds)
+            st["peak"] = max(st["peak"],
+                             torch.cuda.max_memory_allocated() - resident)
+            st["resident"] = resident
+            if want is None:
+                want = out
+            elif same_outputs(out, want) is not None:
+                fail(f"{name}: output {same_outputs(out, want)!r} differs "
+                     "from the default loop's")
+    return stats, want
+
+
+def strategy_line(tag, st, base_ms, scans, smi, kind, **kw):
+    """One strategy's phase line: time to value, scans/s, RDP host rounds
+    and launches a run, peak memory above the resident bytes."""
+    med = float(np.median(st["ms"]))
+    phase(tag, device=repr(kind), power=repr(smi), **kw, median_ms=med,
+          min_ms=min(st["ms"]), max_ms=max(st["ms"]),
+          runs=repr([round(t, 1) for t in st["ms"]]),
+          scans_per_s=scans / med * 1e3, vs_default=med / base_ms,
+          rdp_rounds=st["rounds"][0], score_launches=st["launches"][0],
+          peak_mib=st["peak"] / 2**20, resident_mib=st["resident"] / 2**20,
+          bitwise_default=True)
+
+
+def rollout_strategies(fr32, fr32_dev, ctx32, cfg, device, smi, kind):
+    """rollout_strategies_f32: the 279-frame f32 rollout under each
+    execution strategy (the default loop, the default with the frames on
+    the host, prefeaturize, scan_unroll 8 with and without the batched
+    featurize, scan_unroll 32), STRATEGY_REPEATS runs each in turn, each
+    bitwise the default's, one CalcScore launch a frame; then the first
+    PROFILE_FRAMES frames under prefeaturize through the profiler.
+    Returns the CalcScore launches of the timed runs."""
+    from lsdtpu_torch.runtime import loop
+    F = fr32["ranges"].shape[0]
+
+    def run(frames, **strategy):
+        c = dataclasses.replace(cfg, **strategy)
+        return lambda: host(loop.run_sequence(frames, ctx32, c,
+                                              device=device))
+
+    stats, _ = strategy_runs({
+        "default": run(fr32_dev),
+        "default_host_frames": run(fr32),
+        "prefeaturize": run(fr32_dev, prefeaturize=True),
+        "unroll8": run(fr32_dev, scan_unroll=8),
+        "unroll8_per_frame": run(fr32_dev, scan_unroll=8,
+                                 scan_unroll_batch_featurize=False),
+        "unroll32": run(fr32_dev, scan_unroll=32)}, STRATEGY_REPEATS)
+    base = float(np.median(stats["default"]["ms"]))
+    total = 0
+    for name, st in stats.items():
+        if any(n != (F, 0) for n in st["launches"]):
+            fail(f"rollout_strategies_f32 {name}: (single, batched) "
+                 f"CalcScore launches {st['launches']} for {F} frames")
+        total += sum(n for n, _ in st["launches"])
+        strategy_line("rollout_strategies_f32", st, base, F, smi, kind,
+                      strategy=name, frames=F)
+    c = dataclasses.replace(cfg, prefeaturize=True)
+    fr_prof = {k: v[:PROFILE_FRAMES] for k, v in fr32_dev.items()}
+    wall, acts = device_profile(
+        lambda: loop.run_sequence(fr_prof, ctx32, c, device=device))
+    busy = sum(v[1] for v in acts.values()) / 1e3
+    phase("rollout_strategies_f32_profile", card=repr(smi),
+          strategy="prefeaturize", frames=PROFILE_FRAMES, wall_ms=wall,
+          device_busy_ms=busy, device_idle_share=1.0 - busy / wall,
+          device_ops_per_frame=sum(v[0] for v in acts.values())
+          / PROFILE_FRAMES)
+    return total
+
+
 def lane_dataset(ds, offset, frames):
     """The frames [offset, offset + frames) of a sequence as a dataset."""
     return dataclasses.replace(ds, frames=ds.frames[offset:offset + frames],
@@ -1304,14 +1421,14 @@ def lane_dataset(ds, offset, frames):
 def batch_rollouts(maps, cfg, device, smi, kind):
     """batch_f32: run_batch over BATCH_SIZES lanes of BATCH_FRAMES frames,
     the lanes alternating between the two maps, each from its own frame
-    offset, BATCH_REPEATS timed runs at each B; then BATCH_F64_LANES lanes
-    in f64 against their solo run_sequence on the card.  maps: [(scene,
-    lines, field)].  Returns the batched CalcScore launches of the timed
-    f32 runs."""
+    offset, BATCH_REPEATS timed runs at each B, at STRATEGY_LANES in turn
+    with as many under prefeaturize, bitwise the default's
+    (rollout_strategies_batch_f32); then BATCH_F64_LANES lanes in f64
+    against their solo run_sequence on the card.  maps: [(scene, lines,
+    field)].  Returns the batched CalcScore launches of the timed default
+    and prefeaturize runs."""
     import torch
-    from lsdtpu_torch.ops import score as sc
     from lsdtpu_torch.runtime import batch, loop
-    from lsdtpu_torch.scan import featurize as fz
     F = BATCH_FRAMES
     span = len(maps[0][0].dataset.frames) - F
 
@@ -1325,26 +1442,26 @@ def batch_rollouts(maps, cfg, device, smi, kind):
         return dss, {k: torch.as_tensor(v, device=device)
                      for k, v in fr.items()}, ctxs
 
-    total = 0
+    total = strategy_total = 0
     for B in BATCH_SIZES:
         _d, fr, ctxs = lanes(B, np.float32)
-        batch.run_batch({k: v[:, :3] for k, v in fr.items()}, ctxs, cfg,
-                        device=device)                          # warm-up
-        sc.score_partials_batched.launches = sc.score_partials.launches = 0
-        fz._rdp_rounds.rounds = 0
-        times = []
-        for _ in range(BATCH_REPEATS):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = batch.run_batch(fr, ctxs, cfg, device=device)
-            res = {k: v.cpu().numpy() for k, v in out.items()}  # to value
-            times.append((time.perf_counter() - t0) * 1e3)
+        cfgs = {"default": cfg}
+        if B in STRATEGY_LANES:
+            cfgs["prefeaturize"] = dataclasses.replace(cfg, prefeaturize=True)
+        runs = {}
+        for name, c in cfgs.items():
+            batch.run_batch({k: v[:, :3] for k, v in fr.items()}, ctxs, c,
+                            device=device)                      # warm-up
+            runs[name] = (lambda c: lambda: host(batch.run_batch(
+                fr, ctxs, c, device=device)))(c)
+        stats, res = strategy_runs(runs, BATCH_REPEATS)
+        st = stats["default"]
+        times = st["ms"]
         wall = float(np.median(times))
-        launches = sc.score_partials_batched.launches
-        if launches != F * BATCH_REPEATS or sc.score_partials.launches != 0:
-            fail(f"batch_f32 B={B}: {launches} batched and "
-                 f"{sc.score_partials.launches} single CalcScore launches "
-                 f"for {BATCH_REPEATS} runs of {F} frames")
+        launches = sum(n for _, n in st["launches"])
+        if any(n != (0, F) for n in st["launches"]):
+            fail(f"batch_f32 B={B}: (single, batched) CalcScore launches "
+                 f"{st['launches']} for {BATCH_REPEATS} runs of {F} frames")
         if res["pose"].shape != (B, F, 3):
             fail(f"batch_f32 B={B}: pose shape {res['pose'].shape}")
         tracked = np.isfinite(res["score"]) & ~np.isnan(res["pose"]).any(-1)
@@ -1356,9 +1473,19 @@ def batch_rollouts(maps, cfg, device, smi, kind):
               max_ms=max(times), scans_per_s=B * F / wall * 1e3,
               ms_per_frame=wall / F, score_launches=launches,
               launches_per_frame=launches / (F * BATCH_REPEATS),
-              rdp_rounds_per_frame=fz._rdp_rounds.rounds
-              / (F * BATCH_REPEATS),
+              rdp_rounds_per_frame=sum(st["rounds"]) / (F * BATCH_REPEATS),
               tracked=int(tracked.sum()), of=B * F)
+        if "prefeaturize" in stats:
+            st = stats["prefeaturize"]
+            if any(n != (0, F) for n in st["launches"]):
+                fail(f"rollout_strategies_batch_f32 B={B}: (single, "
+                     f"batched) CalcScore launches {st['launches']}")
+            strategy_total += sum(n for _, n in st["launches"])
+            strategy_line("rollout_strategies_batch_f32", st, wall, B * F,
+                          smi, kind, strategy="prefeaturize", lanes=B,
+                          frames=F, default_rdp_rounds=stats["default"][
+                              "rounds"][0],
+                          default_peak_mib=stats["default"]["peak"] / 2**20)
         if B == PROFILE_LANES:
             sub = {k: v[:, :10] for k, v in fr.items()}
             pwall, acts = device_profile(
@@ -1370,7 +1497,7 @@ def batch_rollouts(maps, cfg, device, smi, kind):
                   device_ops_per_frame=sum(v[0] for v in acts.values()) / 10,
                   score_kernel_ms=sum(v[1] for k, v in acts.items()
                                       if "score_partials_kernel" in k) / 1e3)
-        del fr, ctxs, out
+        del fr, ctxs, runs, res
     # f64: each lane against its solo rollout on the card
     dss, fr, ctxs = lanes(BATCH_F64_LANES, np.float64)
     got = {k: v.cpu().numpy() for k, v in
@@ -1396,7 +1523,7 @@ def batch_rollouts(maps, cfg, device, smi, kind):
         fail(f"batch_f64: lane poses {worst} px from the solo rollouts")
     phase("batch_f64_parity", card=repr(smi), lanes=BATCH_F64_LANES,
           frames=F, decisions="identical", max_pose_diff_px=worst)
-    return total
+    return total, strategy_total
 
 
 def serving(maps, cfg, device, smi, kind):
@@ -2877,6 +3004,10 @@ def main():
           score_kernel_ms=score_ms,
           top=repr([(k[:60], v[0], round(v[1] / 1e3, 3)) for k, v in top]))
 
+    # the execution strategies on the same frames and context
+    strategy_launches = rollout_strategies(fr32, fr32_dev, ctx32, cfg,
+                                           device, smi, kind)
+
     # --- 6. map prep (slice 2) -------------------------------------------
     from lsdtpu_torch.mapprep.pipeline import prepare_map
     from lsdtpu_torch.mapprep.stats import MapPrepStats
@@ -3291,7 +3422,8 @@ def main():
         range(1, TRACKING_LANES + 1), True))
     maps = [(scene, lines, cache64),
             (scene_p, pillar_art.lines_info, pillar_art.map_cache)]
-    batch_launches = batch_rollouts(maps, cfg, device, smi, kind)
+    batch_launches, strategy_batch_launches = batch_rollouts(
+        maps, cfg, device, smi, kind)
     pool_launches = serving(maps, cfg, device, smi, kind)
     phase("batch", card=repr(smi),
           seconds=round(time.perf_counter() - t_batch, 2))
@@ -3335,6 +3467,7 @@ def main():
         "replaces": "lsdtpu/ops/score_pallas.py:54",
         "checked": True, "launches": launches,
         "launches_by_path": {"rollout_f32": launches,
+                             "rollout_strategies_f32": strategy_launches,
                              "end_to_end_f32": launches_e["score_partials"],
                              "end_to_end_fifo_f32":
                                  launches_f["score_partials"],
@@ -3407,8 +3540,11 @@ def main():
         "name": "score_partials_batched", "route": "cuda",
         "source": "lsdtpu_torch/csrc/score.cu",
         "replaces": "lsdtpu/ops/score_pallas.py:54",
-        "checked": True, "launches": batch_launches + pool_launches,
+        "checked": True,
+        "launches": batch_launches + strategy_batch_launches + pool_launches,
         "launches_by_path": {"batch_f32": batch_launches,
+                             "rollout_strategies_batch_f32":
+                                 strategy_batch_launches,
                              "serving_f32": pool_launches},
         "max_abs_err": max(c["max_abs_err"] for c in batch_cases
                            + row_cases),

@@ -162,10 +162,13 @@ class EngineConfig:
     # NaN-poisons tracking, myFA.cpp:161); "fixed" corrects them
     # (incl. a 1e-6 fusion weight floor - match/associate.fuse).
     faithful: bool = True
-    # execution strategies of the reference package's lax.scan rollout
-    # (batched featurization before the scan; k frames per scan body).
-    # Both give identical outputs there; the port's frame loop has no
-    # such choice and ignores them.
+    # execution strategies of the frame loop, honoured by run_sequence
+    # and run_batch (runtime/loop.rollout; the temporal, sharded,
+    # pipelined, serving and streaming runners keep the plain loop, as
+    # the reference package's do).  Outputs are the plain loop's bit for
+    # bit.  prefeaturize: all frames featurized in one call before the
+    # loop; scan_unroll = k > 1: each block of k frames featurized in
+    # one call (scan_unroll_batch_featurize), else frame by frame.
     prefeaturize: bool = False
     scan_unroll: int = 1
     scan_unroll_batch_featurize: bool = True

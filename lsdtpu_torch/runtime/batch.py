@@ -32,7 +32,8 @@ from lsdtpu_torch import resolve_device
 from lsdtpu_torch.config import DEFAULT, EngineConfig
 from lsdtpu_torch.match.associate import quantize_cache
 from lsdtpu_torch.runtime.loop import (MapContext, batched_cfg, rollout,
-                                       stack_frames, to_device, torch_dtype)
+                                       stack_frames, strategy, to_device,
+                                       torch_dtype)
 
 
 def run_batch(frames, ctxs: MapContext, cfg: EngineConfig = DEFAULT,
@@ -40,7 +41,9 @@ def run_batch(frames, ctxs: MapContext, cfg: EngineConfig = DEFAULT,
     """frames: dict of (B, F, ...) stacked inputs (numpy arrays or
     tensors; stack_batch's first output); ctxs: a batched MapContext on
     ``device`` (stack_batch's second output).  Returns the outputs as
-    (B, F, ...) tensors on the device.  On the card the caller keeps
+    (B, F, ...) tensors on the device, under the config's execution
+    strategy (loop.rollout: with prefeaturize one featurize call over
+    the (F, B) frames).  On the card the caller keeps
     torch.backends.cuda.matmul.allow_tf32 False, as for run_sequence."""
     dev = resolve_device(device)
     if ctxs.cache.device.type != dev.type:
@@ -53,7 +56,7 @@ def run_batch(frames, ctxs: MapContext, cfg: EngineConfig = DEFAULT,
     if fr["ranges"].shape[1] != B:
         raise ValueError(f"frames have {fr['ranges'].shape[1]} lanes, "
                          f"ctxs {B}")
-    outs = rollout(fr, ctxs, batched_cfg(cfg), lanes=B)
+    outs = rollout(fr, ctxs, batched_cfg(cfg), lanes=B, **strategy(cfg))
     return {k: v.transpose(0, 1) for k, v in outs.items()}
 
 

@@ -18,10 +18,12 @@ reductions run along its own axes, never across lanes; a batch runs
 under ``batched_cfg`` (no pruning-gate or window host read) and scores
 all lanes in one CalcScore launch.
 
-The reference package's execution strategies ``prefeaturize`` and
-``scan_unroll`` (which give identical outputs there) do not apply to a
-frame loop and are ignored.  ``match.polish_pose`` polishes both
-measurement paths after fusion (match/polish.py).
+The reference package's execution strategies (``prefeaturize``,
+``scan_unroll``) are rollout's arguments, which run_sequence and
+runtime/batch.run_batch read from the config as the reference's
+run_sequence and run_batch do; the outputs are the plain loop's bit for
+bit.  ``match.polish_pose`` polishes both measurement paths after fusion
+(match/polish.py).
 
 The tp/mp arguments (runtime/collectives.Axis, one per rank of the
 sharded runners in runtime/shard.py) shard the step over ranks: with
@@ -55,7 +57,7 @@ from lsdtpu_torch.filter import ukf as fukf
 from lsdtpu_torch.match import associate as assoc
 from lsdtpu_torch.match import polish
 from lsdtpu_torch.runtime.collectives import Axis
-from lsdtpu_torch.scan.featurize import featurize
+from lsdtpu_torch.scan.featurize import ScanFeatures, featurize
 
 
 @dataclasses.dataclass
@@ -389,23 +391,72 @@ _FRAME_KEYS = ("ranges", "angles", "valid", "n", "odom_prev", "odom_cur")
 
 def rollout(fr: dict, ctx: MapContext, cfg: EngineConfig,
             lanes: Optional[int] = None, tp_axis: Axis = Axis.none(),
-            mp_axis: Axis = Axis.none()) -> dict:
+            mp_axis: Axis = Axis.none(), prefeaturize: bool = False,
+            unroll: int = 1, batch_featurize: bool = True) -> dict:
     """The frame loop over tensors on the context's device: fr holds the
     stacked frames with the frame axis first ((F, ...), or (F, B, ...)
     for ``lanes`` = B).  Returns the stacked outputs, frame axis first.
     tp_axis/mp_axis: this rank's shard of a sharded rollout (mp scores
-    unpruned: the pruning field needs the whole field)."""
+    unpruned: the pruning field needs the whole field).
+
+    The execution strategy (``strategy(cfg)``; the defaults are the
+    plain loop): ``prefeaturize`` featurizes all F frames in one call
+    before the loop, the frame axis a lane axis ahead of the batch's;
+    ``unroll`` = k > 1 with ``batch_featurize`` featurizes each block of
+    k frames in one call, the last block padded by repeating its last
+    frame so that every call has one shape (the padding's features are
+    dropped and never reach the carry).  Without ``batch_featurize``
+    the k frames are featurized one by one, which in a frame loop is the
+    plain loop, as is k >= F (the reference's plain scan).  Featurize
+    reads no carry, so moving it ahead of a frame's matching is safe: a
+    reset flag inside a block still resets the carry at its own frame,
+    and each lane of a featurize call is featurized on its own, so every
+    output is the plain loop's bit for bit."""
+    F = fr["ranges"].shape[0]
+    if prefeaturize:
+        block = F
+    elif batch_featurize and 1 < unroll < F:
+        block = unroll
+    else:
+        block = 1
     state = init_state(fr["ranges"].dtype, fr["ranges"].device, lanes)
     coarse = None if mp_axis.size > 1 else prepare_coarse(ctx, cfg)
     outs = []
-    for f in range(fr["ranges"].shape[0]):
-        fr_f = {k: v[f] for k, v in fr.items()}
-        state = reset_carry(state, fr_f)
-        state, out = localization_step(
-            state, tuple(fr_f[k] for k in _FRAME_KEYS), ctx, cfg,
-            tp_axis=tp_axis, mp_axis=mp_axis, coarse=coarse)
-        outs.append(out)
+    for s in range(0, F, block):
+        if block > 1:
+            fs_block = featurize_stage(
+                tuple(_edge_pad(fr[k][s:s + block], block)
+                      for k in _FRAME_KEYS), ctx, cfg)
+        for f in range(s, min(s + block, F)):
+            fr_f = {k: v[f] for k, v in fr.items()}
+            state = reset_carry(state, fr_f)
+            inputs = tuple(fr_f[k] for k in _FRAME_KEYS)
+            if block > 1:
+                fs = ScanFeatures(*(getattr(fs_block, fld.name)[f - s]
+                                    for fld in dataclasses.fields(fs_block)))
+            else:
+                fs = featurize_stage(inputs, ctx, cfg)
+            state, out = match_stage(state, fs, inputs, ctx, cfg,
+                                     tp_axis=tp_axis, mp_axis=mp_axis,
+                                     coarse=coarse)
+            outs.append(out)
     return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+
+
+def _edge_pad(x, size: int):
+    """x (n, ...) padded to ``size`` along its first axis by repeating
+    its last row (a real frame, which featurize takes as any other)."""
+    pad = size - x.shape[0]
+    if pad == 0:
+        return x
+    return torch.cat([x, x[-1:].expand((pad,) + tuple(x.shape[1:]))])
+
+
+def strategy(cfg: EngineConfig) -> dict:
+    """rollout's execution-strategy arguments from the config's
+    prefeaturize, scan_unroll and scan_unroll_batch_featurize."""
+    return dict(prefeaturize=cfg.prefeaturize, unroll=cfg.scan_unroll,
+                batch_featurize=cfg.scan_unroll_batch_featurize)
 
 
 def to_device(frames: dict, dev) -> dict:
@@ -417,7 +468,8 @@ def to_device(frames: dict, dev) -> dict:
 
 def run_sequence(frames, ctx: MapContext, cfg: EngineConfig = DEFAULT,
                  device="cuda"):
-    """Whole-sequence rollout: a Python loop over frames.
+    """Whole-sequence rollout: a Python loop over frames, under the
+    config's execution strategy (rollout).
 
     frames: dict of stacked per-frame inputs with a leading frame axis
     (numpy arrays or tensors): ranges (F, N), angles (F, N), valid
@@ -430,7 +482,7 @@ def run_sequence(frames, ctx: MapContext, cfg: EngineConfig = DEFAULT,
     dev = resolve_device(device)
     if ctx.cache.device.type != dev.type:
         raise ValueError(f"ctx lives on {ctx.cache.device}, not {dev}")
-    return rollout(to_device(frames, dev), ctx, cfg)
+    return rollout(to_device(frames, dev), ctx, cfg, **strategy(cfg))
 
 
 def stack_frames(ds, dtype=np.float32, points_per_scan: int = 360,

@@ -124,7 +124,8 @@ class OnlineLocalizer:
     >>> loc = OnlineLocalizer()                        # on the card
     >>> loc.set_map(map_value, resol, ori_x, ori_y)    # mapCallback
     >>> out = loc.push_scan(ranges, angles, odom_xyang)  # laserCallback
-    """
+
+    One scan a push: cfg's prefeaturize and scan_unroll are ignored."""
 
     def __init__(self, cfg: EngineConfig = DEFAULT, mode: str = "tracking",
                  dtype=np.float32, device="cuda", mapprep: str = "torch"):

@@ -70,7 +70,8 @@ def run_sequence_pipelined(frames, ctx: MapContext, mesh,
     """Two-stage pipelined rollout over a (pp,) mesh (make_mesh_pp);
     returns run_sequence's outputs ((F, ...) tensors on ``device``), the
     same on both ranks.  frames: dict of (F, ...) stacked inputs; ctx on
-    ``device`` (both ranks hold the map)."""
+    ``device`` (both ranks hold the map).  Featurizes frame by frame:
+    cfg's prefeaturize and scan_unroll are ignored."""
     dev = resolve_device(device)
     pp = Axis.of(mesh, PP_AXIS)
     fr = to_device(frames, dev)

@@ -80,7 +80,8 @@ class SessionPool:
     >>> out = pool.step()["r1"]                              # numpy dict
 
     ``mesh``: a 1-D mesh (make_pool_mesh); the slots spread over its ranks
-    (module docstring)."""
+    (module docstring).  One frame a tick: cfg's prefeaturize and
+    scan_unroll are ignored."""
 
     def __init__(self, capacity: int, canvas_hw, cfg: EngineConfig = DEFAULT,
                  dtype=np.float32, device="cuda", mesh=None):

@@ -177,7 +177,8 @@ def run_batch_sharded(frames, ctxs: MapContext, mesh,
     1); ctxs: a batched MapContext (stack_batch's second output, any
     device), the same on every rank.  B and the map-line axis need not
     divide the mesh.  Returns the (B, F, ...) outputs as tensors on
-    ``device``, the same on every rank."""
+    ``device``, the same on every rank.  The plain frame loop: cfg's
+    prefeaturize and scan_unroll are ignored, as in the reference."""
     return _run(frames, ctxs, mesh, cfg, "tp", device)
 
 

@@ -122,7 +122,8 @@ def run_sequence_temporal(frames, ctx: MapContext, mesh=None,
     n_segments defaults to the mesh size and must be a multiple of it:
     each rank rolls n_segments / n of them as the lanes of one batched
     rollout.  warmup frames of overlap are re-processed before every cut
-    and discarded (module docstring)."""
+    and discarded (module docstring).  The plain frame loop: cfg's
+    prefeaturize and scan_unroll are ignored, as in the reference."""
     dev = resolve_device(device)
     if ctx.cache.device.type != dev.type:
         raise ValueError(f"ctx lives on {ctx.cache.device}, not {dev}")

@@ -219,10 +219,12 @@ def featurize(ranges, angles, valid, n, resol, ori_x, ori_y,
 
     ranges/angles: (..., N) padded polar points (valid points first);
     valid: (..., N) bool; n: (...) integer counts; resol/ori_x/ori_y:
-    (...) tensors of the working dtype.  The leading axes are lanes
-    (none for one scan, (B,) for a batch), each featurized on its own;
-    the outputs carry the same leading axes.  Runs on the device of its
-    inputs."""
+    (...) tensors of the working dtype, or (B,) ones that broadcast
+    against the last lane axis.  The leading axes are lanes, any number
+    of them (none for one scan, (B,) for a batch, (F,) or (F, B) for
+    frames featurized together: runtime/loop.rollout's strategies), each
+    featurized on its own and bit for bit as alone; the outputs carry
+    the same leading axes.  Runs on the device of its inputs."""
     N = ranges.shape[-1]
     lanes = tuple(ranges.shape[:-1])
     dtype = ranges.dtype

@@ -223,6 +223,33 @@ def test_batch_equals_library(env, capsys, concat):
     assert errs[-1]["total_scans"] == 2 * F
 
 
+@pytest.mark.parametrize("argv,calls", [
+    (["run", "--set", "prefeaturize=true"], 1),
+    (["run", "--set", "scan_unroll=3", "--set",
+      "scan_unroll_batch_featurize=false"], F),
+    (["batch", "--set", "scan_unroll=2"], F // 2)])
+def test_strategy_overrides_keep_the_records(env, capsys, monkeypatch, argv,
+                                             calls):
+    """--set reaches the rollout's execution strategy (the JAX CLI's
+    tests/test_cli_smoke.py: --set scan_unroll=2): the featurize calls
+    of the F frames are the strategy's, and the records equal the
+    default's."""
+    seen = []
+    featurize_stage = loop.featurize_stage
+    monkeypatch.setattr(loop, "featurize_stage",
+                        lambda *a, **k: seen.append(1) or
+                        featurize_stage(*a, **k))
+    data = env[0]
+    extra = [data] if argv[0] == "batch" else []
+    base = [argv[0], *_args(env)[:1], data, *extra, *_args(env)[2:]]
+    rc, want, _, _ = _cli(capsys, base)
+    assert rc == 0 and len(want) == (2 if extra else F) and len(seen) == F
+    seen.clear()
+    rc, got, _, _ = _cli(capsys, base + argv[1:])
+    assert rc == 0 and len(seen) == calls
+    assert got == want
+
+
 def test_prepare_map_tpu_sharded(env, capsys):
     """--mapprep tpu-sharded on one rank (no torchrun): the sharded
     artifacts, under a key of their own, equal the single-card ones (one
