@@ -62,8 +62,13 @@ its own line; any failure exits non-zero before the last line:
      growth call where the two part ways); every recorded launch replayed through
      the plain versions (same region, queue and count, reg_deg within
      1e-12), 50 repeats of the largest bitwise equal, device time, plain
-     time and bound; f32 wave and FIFO map prep timed to value with the
-     counters, a sample of the f32 launches replayed; then grid -> FIFO
+     time and bound; the kernels past their shared-memory plans (a region
+     spilling the shared queue, a 1600x1600 field whose bitmap exceeds
+     the shared budget, the reducer on queues past its shared slots),
+     f32 and f64, each against its plain version; f32 wave and FIFO map
+     prep timed to value with the counters, a sample of the f32 launches
+     replayed, and each FIFO kernel's launches, mean and summed device ms
+     and summed per-launch bounds over that map prep; then grid -> FIFO
      map prep -> rollout of the 279 frames, 3 repeats, with every kernel's
      launches counted from 0 over that run;
  10. the streaming entry point (slice 5), on the same scene:
@@ -722,17 +727,33 @@ def replay_reduce(c):
     return all(torch.equal(a.cpu(), b) for a, b in zip(c["outputs"], cpu))
 
 
+def _bounds(t_bytes, t_ops, t_chain, t_chain_old, **rest):
+    """A queue kernel's bound, the largest of bytes, operations and its
+    dependent chain, beside the bound with the serial kernels' chain
+    ("_old": one on-chip load a pop or reducer point, one atan2 an
+    accept)."""
+    return dict(bound_ms=max(t_bytes, t_ops, t_chain),
+                bound_by="bytes" if t_bytes >= max(t_ops, t_chain)
+                else "operations", bound_kind="dependent chain",
+                chain_bound_ms=t_chain, bytes_bound_ms=t_bytes,
+                ops_bound_ms=t_ops,
+                bound_old_ms=max(t_bytes, t_ops, t_chain_old),
+                chain_bound_old_ms=t_chain_old, **rest)
+
+
 def grow_bound(c, lat, sm_clock_hz):
     """The bound of one grow_fifo launch from this run's data.  The
-    queue is serial, so its bound is the dependent chain: each popped
-    pixel one dependent on-chip load (the faster of a shared-memory load
-    and an L1 hit) and each accepted pixel, the seed's start angle
-    included, one atan2 of the working type, at the latencies ``lat``
-    measured on this card (ops/grow.py:latency_probe) and the maximum SM
-    clock.  Beside it, bytes (the cells the walk touches - the region and
-    its 8-neighbour ring - read once as angle, sin, cos and ban; the
-    region mask, queue, angle and counts written once) and operations;
-    the bound is the largest of the three."""
+    queue is serial, so its bound is the dependent chain, counted from
+    what the walk must take one step after another: the seed's start
+    angle (one atan2) and, per accepted pixel, one acceptance step - its
+    add, its atan2 and the angle test of the next candidate against the
+    new angle - at the latencies ``lat`` measured on this card
+    (ops/grow.py:latency_probe) and the maximum SM clock.  A pop without
+    an acceptance is parallel work (many are tested at once), so it
+    counts in the operations.  Beside it, bytes (the cells the walk
+    touches - the region and its 8-neighbour ring - read once as angle,
+    sin, cos and ban; the region mask, queue, angle and counts written
+    once) and operations; the bound is the largest of the three."""
     import torch.nn.functional as F
     cur = c["cur"]
     dt = str(c["deg"].dtype).split(".")[1]
@@ -742,35 +763,33 @@ def grow_bound(c, lat, sm_clock_hz):
     touched = int(ring.sum())
     nbytes = touched * (3 * esize + 1) + cur.numel() + 8 * n + 12 + esize
     ops = OPS_PER_POP * pops + OPS_PER_ACCEPT * (n - 1)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS[dt] * 1e3
     load = min(lat["smem_load"], lat["l1_load"])
-    t_chain = (pops * load + n * lat[f"atan2_{dt}"]) / sm_clock_hz * 1e3
-    return dict(bound_ms=max(t_bytes, t_ops, t_chain),
-                bound_by="bytes" if t_bytes >= max(t_ops, t_chain)
-                else "operations", bound_kind="dependent chain",
-                chain_bound_ms=t_chain, bytes_bound_ms=t_bytes,
-                ops_bound_ms=t_ops, touched_cells=touched, pops=pops,
-                accepted=n - 1)
+    return _bounds(
+        nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS[dt] * 1e3,
+        (lat[f"atan2_{dt}"] + (n - 1) * lat[f"accept_{dt}"])
+        / sm_clock_hz * 1e3,
+        (pops * load + n * lat[f"atan2_{dt}"]) / sm_clock_hz * 1e3,
+        touched_cells=touched, pops=pops, accepted=n - 1)
 
 
 def reduce_bound(c, lat, sm_clock_hz, dt):
-    """The bound of one radius_reducer_fifo pass: the dependent chain,
-    one on-chip load per examined point (the slot a point is read from
-    depends on the decision before it), as in grow_bound; beside it the
-    n live queue entries read and written once, a mask cell written per
-    removed point and the count, and the operations per point."""
+    """The bound of one radius_reducer_fifo pass: the dependent chain of
+    one load and distance test of the n points (all at once: a point's
+    flag is a function of the point alone), then one bit scan - a
+    dependent on-chip load - per 32-slot word of flags, as the walk takes
+    them; beside it the n live queue entries read and written once, a
+    mask cell written per removed point and the count, and the
+    operations per point."""
     n = int(c["inputs"][2][0])
     removed = n - int(c["outputs"][2][0])
     nbytes = 16 * n + 2 * removed + 8
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = OPS_PER_REDUCER_POINT * n / PEAK_OPS[dt] * 1e3
-    t_chain = n * min(lat["smem_load"], lat["l1_load"]) / sm_clock_hz * 1e3
-    return dict(bound_ms=max(t_bytes, t_ops, t_chain),
-                bound_by="bytes" if t_bytes >= max(t_ops, t_chain)
-                else "operations", bound_kind="dependent chain",
-                chain_bound_ms=t_chain, bytes_bound_ms=t_bytes,
-                ops_bound_ms=t_ops, points=n, removed=removed)
+    load = min(lat["smem_load"], lat["l1_load"])
+    return _bounds(
+        nbytes / HBM_BYTES_PER_S * 1e3,
+        OPS_PER_REDUCER_POINT * n / PEAK_OPS[dt] * 1e3,
+        (lat["l1_load"] + lat[f"dist_{dt}"] + -(-n // 32) * lat["smem_load"])
+        / sm_clock_hz * 1e3,
+        n * load / sm_clock_hz * 1e3, points=n, removed=removed)
 
 
 def first_differing_growth(a, b):
@@ -829,7 +848,8 @@ def fifo_kernel_cases(grows, reduces, card, floor_ms, lat, clock):
     def launch():
         g = og.grow_fifo(big["sy"], big["sx"], big["thre"], big["ban"],
                          big["deg"], big["sn"], big["cs"], queue)
-        return g.cur, g.reg_deg, g.qy[:n].clone(), g.qx[:n].clone(), g.counts
+        return (g.cur.clone(), g.reg_deg, g.qy[:n].clone(), g.qx[:n].clone(),
+                g.counts)
 
     first = tuple(t.clone() for t in launch())
     if not (torch.equal(first[0], big["cur"])
@@ -884,6 +904,139 @@ def fifo_kernel_cases(grows, reduces, card, floor_ms, lat, clock):
         out.append(r_out)
     return out
 
+
+
+def maze_field(H, W, box, seed, dtype):
+    """A level-line field on the card whose open cells (angle 0.1 +- 0.01,
+    75% of the box (row, col, rows, cols)) grow into one large region and
+    whose other cells, each one of six angles 0.9 apart (also from 0.1 and
+    across the wrap), form small clusters: every decision under the
+    threshold 0.4 is far from it, so the f32 region is exact too.  Returns
+    (deg, sin, cos, ban, seed cell inside the box)."""
+    import torch
+    rng = np.random.default_rng(seed)
+    y0, x0, h, w = box
+    levels = np.array([-2.6, -1.7, -0.8, 1.0, 1.9, 2.8])
+    deg = levels[rng.integers(0, 6, (H, W))]
+    deg[y0:y0 + h, x0:x0 + w] = np.where(
+        rng.random((h, w)) < 0.75, 0.1 + rng.normal(0, 0.01, (h, w)),
+        levels[rng.integers(0, 6, (h, w))])
+    sy, sx = y0 + h // 2, x0 + w // 2
+    deg[sy, sx] = 0.1
+    d = torch.from_numpy(deg.astype(dtype)).cuda()
+    ban = torch.from_numpy(rng.random((H, W)) < 0.01).cuda()
+    ban[sy, sx] = False
+    return d, torch.sin(d), torch.cos(d), ban, (sy, sx)
+
+
+FIFO_EDGE_THRE = 0.4
+# (name, field H, W, the open box, seed): a region past the shared queue
+# on the map-prep field (shared bitmap), and a region on a field whose
+# bitmap exceeds the shared budget (global mask; it spills the queue too)
+FIFO_EDGE_GROWS = (("grow_spill", 293, 432, (0, 0, 293, 432), 4),
+                   ("grow_global_mask", 1600, 1600, (1420, 1390, 180, 150),
+                    5))
+
+
+def fifo_edge_cases(card):
+    """The FIFO kernels past their shared-memory plans (ops/grow.py:
+    grow_plan, reduce_plan), in f32 and f64, each held against its plain
+    version bit for bit (reg_deg to the atan2 ulp the tests allow): the
+    FIFO_EDGE_GROWS regions, and four reducer passes over each region's
+    queue, longer than the reducer's shared slots (on the 1600 x 1600
+    field its far flags too are past the budget, in a global buffer)."""
+    import torch
+    from lsdtpu_torch.ops import grow as og
+    out = []
+    for dt in (np.float32, np.float64):
+        tol = 1e-12 if dt == np.float64 else 1e-5
+        for name, H, W, box, seed in FIFO_EDGE_GROWS:
+            d, s, c, ban, (sy, sx) = maze_field(H, W, box, seed, dt)
+            plan = og.grow_plan(H, W)
+            queue = og.fifo_queue(H, W, d.device)
+            g = og.grow_fifo(sy, sx, FIFO_EDGE_THRE, ban, d, s, c, queue)
+            n = int(g.counts[0])
+            got = (g.cur.cpu(), g.qy[:n].cpu(), g.qx[:n].cpu(),
+                   g.counts.cpu(), float(g.reg_deg))
+            want = og.grow_fifo_reference(
+                sy, sx, FIFO_EDGE_THRE, ban.cpu(), d.cpu(), s.cpu(), c.cpu(),
+                og.fifo_queue(H, W, "cpu"))
+            rd = abs(got[4] - float(want.reg_deg))
+            same = (torch.equal(got[0], want.cur)
+                    and torch.equal(got[1], want.qy[:n])
+                    and torch.equal(got[2], want.qx[:n])
+                    and torch.equal(got[3], want.counts))
+            case = dict(name=f"{name}_{np.dtype(dt).name}", field=(H, W),
+                        region=n, pops=int(got[3][1]),
+                        shared_mask=plan.shared_mask,
+                        queue_cap=plan.queue_cap,
+                        spilled=max(0, n - plan.queue_cap),
+                        same=same, reg_deg_diff=rd,
+                        ms=time_cuda(lambda: og.grow_fifo(
+                            sy, sx, FIFO_EDGE_THRE, ban, d, s, c, queue), 5),
+                        ms_source="cuda events")
+            phase("grow_kernel_check", **case, card=card)
+            out.append(case)
+            if not same or rd > tol or case["spilled"] == 0 or (
+                    name == "grow_global_mask") == plan.shared_mask:
+                fail(f"grow_fifo {case['name']}: not the plain version's "
+                     f"region or not past the shared plan ({case})")
+            rplan = og.reduce_plan(g.qy.numel())
+            dev = (g.qy.clone(), g.qx.clone(), g.counts[:1].clone(),
+                   g.cur.clone(), g.cur.clone())
+            cpu = tuple(t.cpu() for t in dev)
+            rad, same, left = dt(160.0), True, []
+            for _ in range(4):
+                rad = rad * dt(0.75)
+                og.radius_reducer_fifo(sx, sy, rad, *dev)
+                og.radius_reducer_fifo_reference(sx, sy, rad, *cpu)
+                left.append(int(cpu[2]))
+                same = same and int(dev[2]) == int(cpu[2]) and all(
+                    torch.equal(a[:n].cpu(), b[:n])
+                    for a, b in zip(dev[:2], cpu[:2])) and all(
+                    torch.equal(a.cpu(), b) for a, b in zip(dev[3:], cpu[3:]))
+            rcase = dict(name=f"reducer_{name[5:]}_{np.dtype(dt).name}",
+                         points=n, shared_slots=rplan.cap,
+                         shared_flags=rplan.shared_flags, left=left,
+                         same=same)
+            phase("grow_kernel_check", **rcase, card=card)
+            out.append(rcase)
+            if not same or n <= rplan.cap or left[-1] >= n:
+                fail(f"radius_reducer_fifo {rcase['name']}: not the plain "
+                     f"version's outputs or not past the shared slots "
+                     f"({rcase})")
+    return out
+
+
+def fifo_map_summary(grows, reduces, acts, lat, clock, card):
+    """Over one recorded FIFO map prep and the profile of the same map
+    prep: each kernel's launches, mean and summed device ms, and the sum
+    of its per-launch bounds (grow_bound, reduce_bound) beside it, and
+    the sum of the bounds with the serial kernels' chain ("_old")."""
+    out = {}
+    for name, kernel, calls in (
+            ("grow_fifo", "grow_fifo_kernel", grows),
+            ("radius_reducer_fifo", "radius_reducer_fifo_kernel", reduces)):
+        hits = [v for k, v in acts.items() if kernel in k]
+        launches = sum(h[0] for h in hits)
+        device_ms = sum(h[1] for h in hits) / 1e3
+        if name == "grow_fifo":
+            bounds = [grow_bound(c, lat, clock) for c in calls]
+        else:
+            bounds = [reduce_bound(c, lat, clock, "float32") for c in calls]
+        bound_sum = sum(b["bound_ms"] for b in bounds)
+        out[name] = dict(launches=launches, recorded=len(calls),
+                         mean_ms=device_ms / launches if launches else None,
+                         device_ms=device_ms, bound_sum_ms=bound_sum,
+                         over_bound_ms=device_ms - bound_sum,
+                         bound_sum_old_ms=sum(b["bound_old_ms"]
+                                              for b in bounds))
+        phase("grow_kernel_check", map="f32", kernel=name, **out[name],
+              card=card)
+        if launches != len(calls) or launches == 0:
+            fail(f"{name}: {launches} profiled launches for {len(calls)} "
+                 "recorded calls of the same map prep")
+    return out
 
 # --- the streaming entry point (slice 5) -------------------------------
 
@@ -3273,6 +3426,7 @@ def main():
     fifo_runs = fifo_kernel_cases(grows64, reduces64, repr(smi), floor_ms,
                                   lat, clock)
     del grows64, reduces64
+    fifo_edges = fifo_edge_cases(repr(smi))
 
     # f32 on the card: wave and FIFO on this map, time to value (median
     # of FIFO_REPEATS), and a sample of the FIFO launches replayed
@@ -3340,6 +3494,12 @@ def main():
                            (d32[0], grows32[d32[0]]["sy"],
                             grows32[d32[0]]["sx"])),
           reducer_launches=len(reduces32), reducer_differing=len(rd32))
+    if d32 or rd32:
+        fail(f"f32 FIFO kernels: {len(d32)} sampled grow_fifo and "
+             f"{len(rd32)} radius_reducer_fifo launches differ from their "
+             "plain versions")
+    fifo_map = fifo_map_summary(grows32, reduces32, acts, lat, clock,
+                                repr(smi))
     del grows32, reduces32
 
     # the whole FIFO path: grid -> FIFO map prep -> rollout (f32), every
@@ -3525,16 +3685,27 @@ def main():
             "ms": run["ms"], "ms_source": run["ms_source"],
             "plain_ms": run["plain_ms"], "bound_ms": run["bound_ms"],
             "bound_by": run["bound_by"], "bound_kind": run["bound_kind"],
+            "bound_old_ms": run["bound_old_ms"],
+            "chain_bound_ms": run["chain_bound_ms"],
+            "chain_bound_old_ms": run["chain_bound_old_ms"],
             "bytes_bound_ms": run["bytes_bound_ms"],
             "ops_bound_ms": run["ops_bound_ms"], "latency_cycles": lat,
             "library_ms": None,
-            "floor_ms": floor_ms,
-            "design": "one block; its threads clear the region mask, one "
-                      "thread walks the queue with each pop's 9 neighbours "
-                      "loaded before any decision" if name == "grow_fifo"
-                      else "one thread: swap-with-last removal, then the "
-                           "phantom-slot drop",
-            "cases": [run]})
+            "floor_ms": floor_ms, "map_f32": fifo_map[name],
+            "design": "one block; warp 0 walks the queue in windows of 4 "
+                      "entries, lane L testing neighbour L % 8 of entry "
+                      "L / 8, a ballot taking the acceptances in order; "
+                      "the region a shared bitmap (a global mask past the "
+                      "budget), the queue packed in shared memory "
+                      "(spilling to qy/qx); the next window's loads issued "
+                      "before the decisions; warps 1-7 clearing the call's "
+                      "uint8 mask beside the walk" if name == "grow_fifo"
+                      else "one block: far flags decided in parallel into "
+                           "shared bit words, slots in shared memory; one "
+                           "thread runs the swap-with-last walk in runs over "
+                           "the flag words, then the phantom-slot drop",
+            "cases": [run] + [c for c in fifo_edges if c["name"].startswith(
+                "grow" if name == "grow_fifo" else "reducer")]})
     bmain = batch_cases[0]    # one relocking lane beside seven tracking
     batched_kern = {
         "name": "score_partials_batched", "route": "cuda",

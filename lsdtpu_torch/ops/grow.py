@@ -7,7 +7,9 @@ XLA while_loops, lsdtpu/mapprep/lsd.py:_grow_fifo and
 lsdtpu/mapprep/rect.py:radius_reducer_fifo (reference: RegionGrower and
 RegionRadiusReducer, LSD/myLSD.cpp:491-590, 736-802).  Both are serial
 queue walks, so eager PyTorch would pay tens of launches per popped
-pixel; on the card each call is one launch of a one-block kernel.
+pixel; on the card each call is one launch of a one-block kernel whose
+walk reads back shared memory: ``grow_plan`` sizes the region bitmap and
+the queue there, ``reduce_plan`` the reducer's slots and far flags.
 
 ``grow_fifo`` and ``radius_reducer_fifo`` launch their kernels for CUDA
 tensors and count the launches (``.launches``); for CPU tensors, and
@@ -34,6 +36,11 @@ from lsdtpu_torch.ops import build
 
 PI = math.pi
 THREADS = 256     # csrc/grow.cu's block size (checked when the library loads)
+SMEM_MAX = 232_448  # shared bytes a block may use on sm_90 (checked too)
+QUEUE_CAP = 16_384  # grow_fifo's shared queue entries at most (64 KB)
+QUEUE_MIN = 4_096   # the fewest queue entries beside a shared bitmap
+REDUCE_CAP = 8_192  # radius_reducer_fifo's shared entries at most (64 KB)
+MAX_SIDE = 65_535   # a packed queue entry's y and x (y << 16 | x)
 
 _FN: dict = {}
 
@@ -56,14 +63,52 @@ def fifo_queue(H: int, W: int, device):
             torch.empty(H * W, dtype=torch.int32, device=device))
 
 
-def clear_split(cells: int):
-    """The cells each thread of the kernel's block clears: 4-byte words
-    t, t + THREADS, ..., then tail byte t below cells % 4."""
-    words = cells // 4
-    return [[c for w in range(t, words, THREADS) for c in range(4 * w,
-                                                                4 * w + 4)]
-            + ([4 * words + t] if t < cells % 4 else [])
-            for t in range(THREADS)]
+class GrowPlan(NamedTuple):
+    """Where one grow_fifo launch keeps its region mask and queue."""
+
+    shared_mask: bool  # the mask a bitmap in shared memory, else global
+    mask_words: int    # the bitmap's 32-bit words (0 for a global mask)
+    queue_cap: int     # queue entries in shared memory; later ones spill
+    smem_bytes: int    # the launch's dynamic shared memory
+
+
+def grow_plan(H: int, W: int) -> GrowPlan:
+    """The shared-memory plan of a grow_fifo launch on an (H, W) field:
+    a bitmap of the region mask when it fits beside QUEUE_MIN queue
+    entries in SMEM_MAX, and the largest queue up to QUEUE_CAP (and the
+    field's cells) in the rest; a larger field keeps its mask in the
+    global uint8 output beside a queue of QUEUE_CAP."""
+    if not (0 < H <= MAX_SIDE and 0 < W <= MAX_SIDE
+            and H * W < 2 ** 31):
+        raise ValueError(f"grow_fifo takes fields up to {MAX_SIDE} a side "
+                         f"and 2**31 cells, got {H}x{W}")
+    cells = H * W
+    words = -(-cells // 32)
+    shared = 4 * (words + min(QUEUE_MIN, cells)) <= SMEM_MAX
+    room = SMEM_MAX // 4 - (words if shared else 0)
+    cap = min(QUEUE_CAP, cells, room)
+    words = words if shared else 0
+    return GrowPlan(shared, words, cap, 4 * (words + cap))
+
+
+class ReducePlan(NamedTuple):
+    """Where one radius_reducer_fifo launch keeps the queue's slots."""
+
+    cap: int            # slots held in shared memory; later ones stay global
+    flag_words: int     # 32-slot words of far flags, one bit a slot
+    shared_flags: bool  # the flags in shared memory, else a global buffer
+    smem_bytes: int     # the launch's dynamic shared memory
+
+
+def reduce_plan(entries: int) -> ReducePlan:
+    """The shared-memory plan of a reducer launch on a queue of
+    ``entries`` slots: up to REDUCE_CAP slots (8 bytes each) and a far
+    flag for every slot, in shared memory while they fit in SMEM_MAX."""
+    cap = max(1, min(REDUCE_CAP, entries))
+    words = max(1, -(-entries // 32))
+    shared = 8 * cap + 4 * words <= SMEM_MAX
+    return ReducePlan(cap, words, shared, 8 * cap + (4 * words if shared
+                                                     else 0))
 
 
 def _lib(name, dtype):
@@ -71,19 +116,23 @@ def _lib(name, dtype):
     if key not in _FN:
         lib = build.load_library("grow")
         lib.lsd_grow_threads.restype = ctypes.c_int32
-        if lib.lsd_grow_threads() != THREADS:
-            raise RuntimeError(f"csrc/grow.cu's block size "
-                               f"{lib.lsd_grow_threads()} is not "
-                               f"ops/grow.py's {THREADS}")
+        lib.lsd_grow_smem_max.restype = ctypes.c_int32
+        if (lib.lsd_grow_threads(), lib.lsd_grow_smem_max()) != (THREADS,
+                                                                SMEM_MAX):
+            raise RuntimeError(
+                f"csrc/grow.cu's block size and shared budget "
+                f"{(lib.lsd_grow_threads(), lib.lsd_grow_smem_max())} are "
+                f"not ops/grow.py's {(THREADS, SMEM_MAX)}")
         sfx = "f32" if dtype == torch.float32 else "f64"
         real = ctypes.c_float if dtype == torch.float32 else ctypes.c_double
         p, i = ctypes.c_void_p, ctypes.c_int
         if name == "grow":
             fn = getattr(lib, f"lsd_grow_fifo_{sfx}")
-            fn.argtypes = [i, i, real, p, p, p, p, p, i, i, p, p, p, p, p, p]
+            fn.argtypes = [i, i, real, p, p, p, p, p, i, i, i, i, p, p, p,
+                           p, p, p]
         else:
             fn = getattr(lib, f"lsd_radius_reducer_fifo_{sfx}")
-            fn.argtypes = [i, i, real, p, p, p, p, p, i, p]
+            fn.argtypes = [i, i, real, p, p, p, p, p, i, i, i, p, p]
         fn.restype = ctypes.c_int
         _FN[key] = fn
     return _FN[key]
@@ -95,10 +144,13 @@ PROBE_RING = 1024  # csrc/grow.cu's kProbeRing
 def latency_probe(device="cuda", steps: int = 4096) -> dict:
     """SM cycles of one dependent step on the card, for the queue
     kernels' chain bound: a shared-memory load ("smem_load"), an L1 hit
-    on the read-only path ("l1_load"), and an atan2 in each working type
-    ("atan2_float64", "atan2_float32"); each the mean over a chain of
-    ``steps`` (csrc/grow.cu:latency_probe_kernel, one thread, clock64).
-    A measurement, not a kernel of map prep: it is not counted."""
+    on the read-only path ("l1_load"), and in each working type an atan2
+    ("atan2_float64", "atan2_float32"), one acceptance of grow_fifo - its
+    add, atan2 and the next angle test ("accept_float64", ...) - and one
+    distance test of the reducer ("dist_float64", ...); each the mean over
+    a chain of ``steps`` (csrc/grow.cu:latency_probe_kernel, one thread,
+    clock64).  A measurement, not a kernel of map prep: it is not
+    counted."""
     dev = torch.device(device)
     if dev.type != "cuda":
         raise ValueError(f"the latency probe runs on a CUDA device, not {dev}")
@@ -109,14 +161,16 @@ def latency_probe(device="cuda", steps: int = 4096) -> dict:
     fn.restype = ctypes.c_int
     ring = (torch.arange(1, PROBE_RING + 1, device=dev) % PROBE_RING).to(
         torch.int32)
-    out = torch.zeros(5, dtype=torch.int64, device=dev)
+    keys = ("smem_load", "l1_load", "atan2_float64", "atan2_float32",
+            "accept_float64", "accept_float32", "dist_float64",
+            "dist_float32")
+    out = torch.zeros(len(keys) + 1, dtype=torch.int64, device=dev)
     err = fn(ring.data_ptr(), steps, out.data_ptr(),
              torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"latency probe launch failed: CUDA error {err}")
     cycles = out.cpu().tolist()
-    return {k: cycles[i] / steps for i, k in enumerate(
-        ("smem_load", "l1_load", "atan2_float64", "atan2_float32"))}
+    return {k: cycles[i] / steps for i, k in enumerate(keys)}
 
 
 def _check_grow(seed_y, seed_x, deg_thre, ban, deg_map, sin_map, cos_map,
@@ -129,6 +183,7 @@ def _check_grow(seed_y, seed_x, deg_thre, ban, deg_map, sin_map, cos_map,
     H, W = deg_map.shape
     if not (0 <= seed_y < H and 0 <= seed_x < W):
         raise ValueError(f"seed ({seed_y}, {seed_x}) outside {H}x{W}")
+    grow_plan(H, W)
     for name, t in (("sin_map", sin_map), ("cos_map", cos_map)):
         if t.dtype != dt or t.shape != deg_map.shape:
             raise TypeError(f"{name} must be {dt} {tuple(deg_map.shape)}")
@@ -176,6 +231,7 @@ def grow_fifo(seed_y: int, seed_x: int, deg_thre, ban, deg_map, sin_map,
         raise ValueError(f"no kernel for device {deg_map.device}")
     dev = deg_map.device
     qy, qx = queue
+    plan = grow_plan(H, W)
     cur = torch.empty((H, W), dtype=torch.bool, device=dev)
     reg_deg = torch.empty((), dtype=deg_map.dtype, device=dev)
     counts = torch.empty(3, dtype=torch.int32, device=dev)
@@ -184,8 +240,9 @@ def grow_fifo(seed_y: int, seed_x: int, deg_thre, ban, deg_map, sin_map,
         int(seed_y), int(seed_x), 0.0 if thre_t else float(deg_thre),
         deg_thre.data_ptr() if thre_t else None, ban.data_ptr(),
         deg_map.data_ptr(), sin_map.data_ptr(), cos_map.data_ptr(), H, W,
-        qy.data_ptr(), qx.data_ptr(), cur.data_ptr(), reg_deg.data_ptr(),
-        counts.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        int(plan.shared_mask), plan.queue_cap, qy.data_ptr(), qx.data_ptr(),
+        cur.data_ptr(), reg_deg.data_ptr(), counts.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"grow_fifo kernel launch failed: CUDA error {err}")
     grow_fifo.launches += 1
@@ -298,9 +355,14 @@ def radius_reducer_fifo(seed_x: int, seed_y: int, rad, qy, qx, n, cur, fit):
     if qy.device.type != "cuda":
         raise ValueError(f"no kernel for device {qy.device}")
     dt = torch.float32 if isinstance(rad, np.float32) else torch.float64
+    plan = reduce_plan(min(qy.numel(), qx.numel()))
+    flags = None if plan.shared_flags else torch.empty(
+        plan.flag_words, dtype=torch.int32, device=qy.device)
     err = _lib("reduce", dt)(
         int(seed_x), int(seed_y), float(rad), qy.data_ptr(), qx.data_ptr(),
         n.data_ptr(), cur.data_ptr(), fit.data_ptr(), cur.shape[1],
+        plan.cap, plan.flag_words,
+        None if flags is None else flags.data_ptr(),
         torch.cuda.current_stream(qy.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"radius_reducer_fifo kernel launch failed: CUDA "

@@ -171,12 +171,15 @@ def fuse_candidates(cands: List[Candidate]) -> Optional[Candidate]:
     fused pose becomes inf/inf = NaN and the fused score
     1/sqrt(inf) = 0.  Python float division would raise instead -
     mirror the C++ semantics explicitly (found by
-    scripts/fuzz_campaign.py r5)."""
+    scripts/fuzz_campaign.py r5).  The test is on the square, as the
+    C++ divides by it: a positive score below ~1.5e-162 squares to 0.0
+    and gets the same infinite weight."""
     if not cands:
         return None
     sum_x = sum_y = sum_ang = sum_s = 0.0
     for c in cands:
-        w = math.inf if c.score == 0.0 else 1.0 / (c.score * c.score)
+        sq = c.score * c.score
+        w = math.inf if sq == 0.0 else 1.0 / sq
         sum_x += c.x * w
         sum_y += c.y * w
         sum_ang += c.ang * w

@@ -458,6 +458,141 @@ def test_radius_reducer_fifo_kernel_matches_plain_on_card(dtype):
             assert torch.equal(dev[4].cpu(), cpu[4])
 
 
+def _maze_case(dtype, H, W, box, seed):
+    """A field whose open cells (angle 0.1 +- 0.01, 75% of the box of
+    rows x cols at its top-left corner box[0:2]) grow into one large
+    region and whose other cells, each one of six angles 0.9 apart (also
+    from 0.1 and across the wrap), form small clusters: every decision
+    under the threshold 0.4 is far from it, so the f32 region is exact
+    too.  Returns the card's (deg, sin, cos, ban) and a seed cell inside
+    the box."""
+    rng = np.random.default_rng(seed)
+    y0, x0, h, w = box
+    levels = np.array([-2.6, -1.7, -0.8, 1.0, 1.9, 2.8])
+    deg = levels[rng.integers(0, 6, (H, W))]
+    patch = np.where(rng.random((h, w)) < 0.75,
+                     0.1 + rng.normal(0, 0.01, (h, w)),
+                     levels[rng.integers(0, 6, (h, w))])
+    deg[y0:y0 + h, x0:x0 + w] = patch
+    sy, sx = y0 + h // 2, x0 + w // 2
+    deg[sy, sx] = 0.1
+    d = torch.from_numpy(deg.astype(dtype)).cuda()
+    ban = torch.from_numpy(rng.random((H, W)) < 0.01).cuda()
+    ban[sy, sx] = False
+    return d, torch.sin(d), torch.cos(d), ban, (sy, sx)
+
+
+def _assert_grow_equals_plain(og, sy, sx, thre, d, s, c, ban):
+    H, W = d.shape
+    g = og.grow_fifo(sy, sx, thre, ban, d, s, c)
+    torch.cuda.synchronize()
+    n = int(g.counts[0])
+    want = og.grow_fifo_reference(sy, sx, thre, ban.cpu(), d.cpu(), s.cpu(),
+                                  c.cpu(), og.fifo_queue(H, W, "cpu"))
+    assert g.counts.tolist() == want.counts.tolist()
+    assert torch.equal(g.cur.cpu(), want.cur)
+    assert torch.equal(g.qy[:n].cpu(), want.qy[:n])
+    assert torch.equal(g.qx[:n].cpu(), want.qx[:n])
+    tol = 1e-12 if d.dtype == torch.float64 else 1e-5
+    assert abs(float(g.reg_deg) - float(want.reg_deg)) <= tol
+    return g, n
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_grow_fifo_kernel_spills_the_shared_queue_on_card(dtype):
+    """A region of more pixels than the shared queue holds (its later
+    entries live in the global qy/qx): the plain version's region, queue
+    and counts."""
+    _need_card()
+    from lsdtpu_torch.ops import grow as og
+    d, s, c, ban, (sy, sx) = _maze_case(dtype, 200, 200, (0, 0, 200, 200), 4)
+    assert og.grow_plan(200, 200).shared_mask
+    _g, n = _assert_grow_equals_plain(og, sy, sx, 0.4, d, s, c, ban)
+    assert n > og.grow_plan(200, 200).queue_cap
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_grow_fifo_kernel_field_above_bitmap_budget_on_card(dtype):
+    """A 1600 x 1600 field, whose bitmap would not fit in shared memory:
+    the mask lives in global memory, and a region near the far corner
+    that also spills the queue equals the plain version; so does a small
+    one at the origin."""
+    _need_card()
+    from lsdtpu_torch.ops import grow as og
+    d, s, c, ban, (sy, sx) = _maze_case(dtype, 1600, 1600,
+                                        (1420, 1390, 180, 150), 5)
+    assert not og.grow_plan(1600, 1600).shared_mask
+    _g, n = _assert_grow_equals_plain(og, sy, sx, 0.4, d, s, c, ban)
+    assert n > og.grow_plan(1600, 1600).queue_cap
+    _g, n0 = _assert_grow_equals_plain(og, 0, 0, 0.4, d, s, c, ban)
+    assert 1 <= n0 < 1000
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_radius_reducer_fifo_kernel_spills_on_card(dtype):
+    """Shrink passes over a queue longer than the reducer's shared
+    entries (the later slots walked in the global queue), far from the
+    origin: the plain version's queue, count and masks."""
+    _need_card()
+    from lsdtpu_torch.ops import grow as og
+    d, s, c, ban, (sy, sx) = _maze_case(dtype, 200, 200, (0, 0, 200, 200), 6)
+    g = og.grow_fifo(sy, sx, 0.4, ban, d, s, c)
+    n = int(g.counts[0])
+    assert n > og.reduce_plan(g.qy.numel()).cap
+    dev = (g.qy.clone(), g.qx.clone(), g.counts[:1].clone(), g.cur.clone(),
+           g.cur.clone())
+    cpu = tuple(t.cpu() for t in dev)
+    rad = np.dtype(dtype).type(120.0)
+    for _ in range(4):
+        rad = rad * np.dtype(dtype).type(0.75)
+        og.radius_reducer_fifo(sx, sy, rad, *dev)
+        og.radius_reducer_fifo_reference(sx, sy, rad, *cpu)
+        assert int(dev[2]) == int(cpu[2]) < n
+        assert torch.equal(dev[0][:n].cpu(), cpu[0][:n])
+        assert torch.equal(dev[1][:n].cpu(), cpu[1][:n])
+        assert torch.equal(dev[3].cpu(), cpu[3])
+        assert torch.equal(dev[4].cpu(), cpu[4])
+
+
+FIFO_THRE = 0.4
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_grow_fifo_kernel_reuses_the_queue_on_card(dtype):
+    """One queue through growths of every size, as map prep uses it: each
+    region (after a spilling one, a one-pixel one, and a reducer pass on
+    a clone of the mask) is the plain version's, in a mask of its own
+    that the next call leaves as it was."""
+    _need_card()
+    from lsdtpu_torch.ops import grow as og
+    d, s, c, ban, (sy, sx) = _maze_case(dtype, 200, 200, (0, 0, 200, 200), 7)
+    H, W = d.shape
+    queue = og.fifo_queue(H, W, "cuda")
+    rng = np.random.default_rng(7)
+    seeds = [(sy, sx)] + [(int(rng.integers(0, H)), int(rng.integers(0, W)))
+                          for _ in range(6)] + [(sy, sx), (0, 0)]
+    sizes, prev = [], None
+    for k, (y, x) in enumerate(seeds):
+        g = og.grow_fifo(y, x, FIFO_THRE, ban, d, s, c, queue)
+        if prev is not None:
+            assert torch.equal(prev[0], prev[1].cpu())
+        n = int(g.counts[0])
+        want = og.grow_fifo_reference(y, x, FIFO_THRE, ban.cpu(), d.cpu(),
+                                      s.cpu(), c.cpu(),
+                                      og.fifo_queue(H, W, "cpu"))
+        assert g.counts.tolist() == want.counts.tolist()
+        assert torch.equal(g.cur.cpu(), want.cur)
+        assert torch.equal(g.qy[:n].cpu(), want.qy[:n])
+        assert torch.equal(g.qx[:n].cpu(), want.qx[:n])
+        sizes.append(n)
+        prev = want.cur, g.cur
+        if k == 0:   # a reducer pass on a clone, as the refiner runs it
+            og.radius_reducer_fifo(sx, sy, np.dtype(dtype).type(50.0), g.qy,
+                                   g.qx, g.counts[:1].clone(), g.cur.clone(),
+                                   g.cur.clone())
+    assert sizes[0] > og.grow_plan(H, W).queue_cap and min(sizes) < 10
+
+
 def test_prepare_map_fifo_card_matches_cpu():
     """FIFO map prep of a small map on the card and on the CPU in f64:
     the same lines (endpoints within 1e-9 px) and one grow_fifo launch
@@ -508,15 +643,19 @@ def test_rectangle_fit_card_equals_cpu_bitwise(dtype):
 
 
 def test_latency_probe_on_card():
-    """The chain bound's latencies: positive, and an atan2 slower than a
-    dependent on-chip load."""
+    """The chain bound's latencies: positive, an atan2 slower than a
+    dependent on-chip load, and an acceptance step (its add, atan2 and
+    angle test) no faster than its atan2."""
     _need_card()
     from lsdtpu_torch.ops import grow as og
     lat = og.latency_probe("cuda", steps=512)
     assert set(lat) == {"smem_load", "l1_load", "atan2_float64",
-                        "atan2_float32"}
+                        "atan2_float32", "accept_float64", "accept_float32",
+                        "dist_float64", "dist_float32"}
     assert all(v > 0 for v in lat.values())
     assert lat["atan2_float64"] > min(lat["smem_load"], lat["l1_load"])
+    for dt in ("float64", "float32"):
+        assert lat[f"accept_{dt}"] >= lat[f"atan2_{dt}"]
 
 
 # --- the streaming entry point (runtime/online.py), the legacy matcher and

@@ -17,9 +17,19 @@ a binary search - equals ``rect_counts_reference`` on hypothesis-drawn
 rectangles (out of the image, degenerate, non-finite slopes and scalars)
 and on the random rectangles of tests/test_nfa_pallas.py.
 
-FIFO growth (csrc/grow.cu): one block; ``ops/grow.py:clear_split`` is
-how its threads clear the region mask before thread 0 walks the queue:
-every cell exactly once, in 4-byte words and the tail bytes."""
+FIFO growth (csrc/grow.cu): one block whose warp 0 walks the queue
+on the chip.  ``ops/grow.py:grow_plan`` puts the region bitmap and the
+queue in the shared-memory budget (a global mask above it, a queue
+spilling past its cap), ``reduce_plan`` the reducer's slots and flags,
+and the block's threads clear the whole uint8 mask (each cell once, by
+warps 1-7 beside the walk or by every thread before it).  Plain mirrors
+of the two
+kernels' walks - the packed queue with its spill, the bitmap, windows
+of queue entries tested by a warp's lanes together, the next window
+loaded ahead; the reducer's far flags decided first and the
+swap-with-last walk taken in runs over the flag words, its slots past
+the cap in the global queue - equal ``grow_fifo_reference`` and
+``radius_reducer_fifo_reference``."""
 
 import math
 
@@ -373,14 +383,350 @@ def test_nfa_flat_index_full_height_vertical_line():
 
 # --- FIFO growth -------------------------------------------------------
 
+WARP = 32   # csrc/grow.cu's kWarp: warp 0 walks, warps 1-7 clear beside it
+
+
+def _clear_split(cells, shared_mask):
+    """The cells each thread of the grow_fifo block clears from the uint8
+    mask (csrc/grow.cu:clear_mask): the clearing threads are warps 1-7
+    beside the walk with the bitmap in shared memory, all threads before
+    it with the global mask; clearing thread t takes 16-byte words t,
+    t + n, ... and tail byte t below cells % 16."""
+    first = WARP if shared_mask else 0
+    n = ogrow.THREADS - first
+    words = cells // 16
+    return [[] for _ in range(first)] + [
+        [c for w in range(t, words, n) for c in range(16 * w, 16 * w + 16)]
+        + ([16 * words + t] if t < cells % 16 else []) for t in range(n)]
+
+
 @pytest.mark.parametrize("cells", [1, 3, 4, 255, 1021, 24 * 32, 293 * 432])
 def test_grow_clear_split_covers_each_cell_once(cells):
-    split = ogrow.clear_split(cells)
-    assert len(split) == ogrow.THREADS
-    assert sorted(c for t in split for c in t) == list(range(cells))
-    # whole words first: a thread's cells below the tail come in aligned
-    # groups of four
-    words = cells // 4 * 4
-    for t in split:
-        body = [c for c in t if c < words]
-        assert all(c % 4 == i % 4 for i, c in enumerate(body))
+    """The whole mask of ``cells`` cells is cleared, each cell exactly
+    once: by warps 1-7 beside the walk (warp 0, the walker's, clears
+    nothing) or by every thread before it, whole 16-byte words first."""
+    for shared_mask in (True, False):
+        split = _clear_split(cells, shared_mask)
+        assert len(split) == ogrow.THREADS
+        assert sorted(c for t in split for c in t) == list(range(cells))
+        if shared_mask:
+            assert not any(split[:WARP])
+        body = cells // 16 * 16
+        for t in split:   # a thread's cells below the tail: aligned words
+            head = [c for c in t if c < body]
+            assert all(c % 16 == i % 16 for i, c in enumerate(head))
+
+
+def test_grow_fifo_returns_a_mask_per_call():
+    """Growth calls on one queue each return a mask of their own: a later
+    call leaves an earlier region's mask as it was."""
+    H, W = 12, 16
+    deg, sn, cs, ban, _ = _coherent_field(5, H, W)
+    t = [torch.from_numpy(v) for v in (ban, deg, sn, cs)]
+    queue = ogrow.fifo_queue(H, W, "cpu")
+    first = ogrow.grow_fifo(2, 3, 0.55, *t, queue)
+    kept = first.cur.clone()
+    second = ogrow.grow_fifo(H - 2, W - 3, 0.55, *t, queue)
+    assert torch.equal(first.cur, kept)
+    assert first.cur.data_ptr() != second.cur.data_ptr()
+    assert int(first.counts[0]) == int(kept.sum())
+
+
+@pytest.mark.parametrize("H,W,shared,cap", [
+    (1, 1, True, 1), (3, 5, True, 15), (96, 128, True, 96 * 128),
+    (293, 432, True, ogrow.QUEUE_CAP), (979, 1440, True, 14057),
+    (1314, 1314, True, 4155), (1315, 1316, False, ogrow.QUEUE_CAP),
+    (1600, 1600, False, ogrow.QUEUE_CAP), (1, 65535, True, ogrow.QUEUE_CAP)])
+def test_grow_plan_fits_the_shared_budget(H, W, shared, cap):
+    pl = ogrow.grow_plan(H, W)
+    assert (pl.shared_mask, pl.queue_cap) == (shared, cap)
+    words = -(-H * W // 32)
+    assert pl.mask_words == (words if shared else 0)
+    assert pl.smem_bytes == 4 * (pl.mask_words + pl.queue_cap) \
+        <= ogrow.SMEM_MAX
+    # the bitmap is in shared memory exactly when it fits beside the
+    # fewest queue entries; the queue never exceeds the cells or its cap
+    assert shared == (4 * (words + min(ogrow.QUEUE_MIN, H * W))
+                      <= ogrow.SMEM_MAX)
+    assert 1 <= pl.queue_cap <= min(ogrow.QUEUE_CAP, H * W)
+    if shared and H * W > ogrow.QUEUE_CAP:
+        assert pl.queue_cap >= ogrow.QUEUE_MIN
+
+
+def test_grow_plan_map_prep_field_spills_only_a_large_flood():
+    """The 293 x 432 map-prep field: a 16 KB bitmap beside a 64 KB queue,
+    above the 48 KB a launch gets without the attribute; a region spills
+    into the global queue only past 16384 pixels (a full flood)."""
+    pl = ogrow.grow_plan(293, 432)
+    assert pl.mask_words * 4 == 15824 and pl.smem_bytes == 81360 > 49152
+    assert pl.queue_cap < 293 * 432
+
+
+@pytest.mark.parametrize("H,W", [(0, 4), (4, 0), (65536, 2), (2, 65536),
+                                 (65535, 65535)])
+def test_grow_plan_rejects_fields_the_kernel_cannot_pack(H, W):
+    with pytest.raises(ValueError):
+        ogrow.grow_plan(H, W)
+
+
+@pytest.mark.parametrize("entries,cap,shared", [
+    (1, 1, True), (132, 132, True), (8192, 8192, True),
+    (293 * 432, ogrow.REDUCE_CAP, True), (0, 1, True),
+    (1600 * 1600, ogrow.REDUCE_CAP, False)])
+def test_reduce_plan(entries, cap, shared):
+    pl = ogrow.reduce_plan(entries)
+    assert (pl.cap, pl.shared_flags) == (cap, shared)
+    assert pl.flag_words * 32 >= entries > (pl.flag_words - 1) * 32 \
+        or entries == 0
+    assert pl.smem_bytes == 8 * pl.cap + 4 * pl.flag_words * shared \
+        <= ogrow.SMEM_MAX
+
+
+_NB = [(-1, -1), (-1, 0), (-1, 1), (0, -1), (0, 1), (1, -1), (1, 0), (1, 1)]
+
+
+def _grow_mirror(sy, sx, thre, ban, deg, sn, cs, qcap, window=4):
+    """csrc/grow.cu's walk in float64 host scalars: a shared queue of
+    packed cells (y << 16 | x) of qcap entries spilling into qy/qx, the
+    region as a bitmap, and the warp's windows: lane L tests neighbour
+    L % 8 of entry L // 8 of a window of ``window`` entries against the
+    running angle; the lowest passing lane is accepted and the later lanes
+    drop its cell and are tested again.  The next window's entries that
+    exist are loaded before the current one is decided, those it appends
+    after.  Returns the outputs of Growth as lists and the count of
+    windows completed after their decisions."""
+    H, W = deg.shape
+    bm = [0] * (-(-H * W // 32))
+    sq, qy, qx = [0] * qcap, [0] * (H * W), [0] * (H * W)
+    st = dict(grow=1, appended=0)
+
+    def entry(j):
+        return sq[j] if j < qcap else (qy[j] << 16) | qx[j]
+
+    def bit(idx):
+        return (bm[idx >> 5] >> (idx & 31)) & 1
+
+    def lane(e, L, j):
+        dy, dx = _NB[L % 8]
+        m, n = (e >> 16) + dy, (e & 0xFFFF) + dx
+        inb = 0 <= m < H and 0 <= n < W
+        return dict(inb=inb, e=(m << 16) | (n & 0xFFFF),
+                    idx=m * W + n if inb else 0,
+                    ban=bool(ban[m, n]) if inb else True,
+                    d=float(deg[m, n]) if inb else 0.0,
+                    s=float(sn[m, n]) if inb else 0.0,
+                    c=float(cs[m, n]) if inb else 0.0, src=(j, e))
+
+    def load(base, keep=0, old=None):
+        count = min(window, st["grow"] - base)
+        return dict(base=base, count=count, lanes=[
+            old["lanes"][L] if L // 8 < keep else
+            lane(entry(base + L // 8), L, base + L // 8)
+            if L // 8 < count else dict(inb=False, idx=0, src=None)
+            for L in range(8 * window)])
+
+    fold, two_pi = 1.5 * math.pi, 2.0 * math.pi
+
+    def ok(d, nd):
+        dif = abs(d - nd)
+        return (abs(dif - two_pi) if dif > fold else dif) < thre
+
+    s_sin, s_cos = float(sn[sy, sx]), float(cs[sy, sx])
+    d = math.atan2(s_sin, s_cos)
+    idx0 = sy * W + sx
+    bm[idx0 >> 5] |= 1 << (idx0 & 31)
+    sq[0] = (sy << 16) | sx
+    i, ex, pops, passes = 0, 1, 0, 1
+    a = load(0)
+    while True:
+        assert a["base"] == i and a["count"] == min(window, st["grow"] - i)
+        for L, ln in enumerate(a["lanes"]):   # the window is the queue's
+            if L // 8 < a["count"]:
+                assert ln["src"] == (i + L // 8, entry(i + L // 8))
+        opened = [ln["inb"] and not ln["ban"] and not bit(ln["idx"])
+                  for ln in a["lanes"]]
+        passing = [o and ok(d, ln["d"]) for o, ln in zip(opened, a["lanes"])]
+        after = i + a["count"]
+        b = load(after)
+        acc = [L for L, p in enumerate(passing) if p]
+        while acc:
+            L = acc[0]
+            ln = a["lanes"][L]
+            s_sin, s_cos = s_sin + ln["s"], s_cos + ln["c"]
+            bm[ln["idx"] >> 5] |= 1 << (ln["idx"] & 31)
+            g = st["grow"]
+            if g < qcap:
+                sq[g] = ln["e"]
+            else:
+                qy[g], qx[g] = ln["e"] >> 16, ln["e"] & 0xFFFF
+            st["grow"] = g + 1
+            d = math.atan2(s_sin, s_cos)
+            opened = [o and x["idx"] != ln["idx"]
+                      for o, x in zip(opened, a["lanes"])]
+            acc = [L2 for L2, (o, x) in enumerate(zip(opened, a["lanes"]))
+                   if o and L2 > L and ok(d, x["d"])]
+        pops += a["count"]
+        i = after
+        if after == st["grow"]:
+            if st["grow"] == ex:
+                break
+            ex, passes, i = st["grow"], passes + 1, 0
+            b = load(0)
+        elif b["count"] < window and after + b["count"] < st["grow"]:
+            b = load(after, b["count"], b)
+            st["appended"] += 1
+        a = b
+    grow = st["grow"]
+    for j in range(min(grow, qcap)):
+        qy[j], qx[j] = sq[j] >> 16, sq[j] & 0xFFFF
+    mask = [bit(k) for k in range(H * W)]
+    return (mask, d, qy[:grow], qx[:grow], [grow, pops, passes]), \
+        st["appended"]
+
+
+def _coherent_field(seed, H, W):
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float64)
+    part = (xx * 3 // W).astype(int) + 3 * (yy * 2 // H).astype(int)
+    base = rng.uniform(-np.pi, np.pi, 6)
+    deg = base[part] + 0.02 * xx - 0.01 * yy + rng.normal(0, 0.15, (H, W))
+    deg = (deg + np.pi) % (2 * np.pi) - np.pi
+    ban = rng.random((H, W)) < 0.04
+    return deg, np.sin(deg), np.cos(deg), ban, rng
+
+
+@pytest.mark.parametrize("qcap", [1, 7, 64, 10 ** 6])
+def test_grow_kernel_walk_equals_plain(qcap):
+    """The kernel's walk (windows of queue entries tested together, the
+    queue spilling past qcap entries, the next window loaded ahead and
+    completed with the entries appended to it)
+    equals grow_fifo_reference in f64 bit for bit, regions large and
+    small, including the field's edges and a pi-wrapping angle."""
+    H, W = 24, 30
+    deg, sn, cs, ban, rng = _coherent_field(11, H, W)
+    t = {k: torch.from_numpy(v) for k, v in
+         (("deg", deg), ("sn", sn), ("cs", cs), ("ban", ban))}
+    appended, largest = 0, 0
+    seeds = [(0, 0), (H - 1, W - 1), (0, W - 1)] + [
+        (int(rng.integers(0, H)), int(rng.integers(0, W))) for _ in range(9)]
+    for k, (sy, sx) in enumerate(seeds):
+        thre = (0.3, 0.55, 2.0)[k % 3]
+        (mask, d, qy, qx, counts), app = _grow_mirror(
+            sy, sx, thre, ban, deg, sn, cs, min(qcap, H * W))
+        want = ogrow.grow_fifo_reference(
+            sy, sx, thre, t["ban"], t["deg"], t["sn"], t["cs"],
+            ogrow.fifo_queue(H, W, "cpu"))
+        n = int(want.counts[0])
+        assert counts == want.counts.tolist()
+        assert mask == want.cur.reshape(-1).to(torch.uint8).tolist()
+        assert qy == want.qy[:n].tolist() and qx == want.qx[:n].tolist()
+        assert d == float(want.reg_deg)
+        appended += app
+        largest = max(largest, n)
+    # spills, and windows the queue grew into
+    assert largest > 64 and appended > 0
+
+
+def _reduce_mirror(sx, sy, rad, qy, qx, m, cur, fit, W, cap):
+    """csrc/grow.cu's reducer in float64 host scalars: a far flag bit for
+    every live slot decided first (the far cells cleared), the first cap
+    slots held aside, then the swap-with-last walk taken in runs over the
+    flag words - the next far slot found at once, the last kept slot
+    before the end found at once - with slots past cap in the global
+    queue, then the phantom-slot rule."""
+    fx, fy = float(sx), float(sy)
+    ms = min(m, cap)
+    fb = [0] * max(1, -(-m // 32))
+    se = [None] * ms
+    for j in range(m):
+        dx, dy = fx - float(qx[j]), fy - float(qy[j])
+        if math.sqrt(dx * dx + dy * dy) > rad:
+            fb[j >> 5] |= 1 << (j & 31)
+            cur[qy[j] * W + qx[j]] = fit[qy[j] * W + qx[j]] = 0
+        if j < ms:
+            se[j] = (qx[j], qy[j])
+
+    def get(j):
+        return se[j] if j < ms else (qx[j], qy[j])
+
+    def put(j, e):
+        if j < ms:
+            se[j] = e
+        else:
+            qx[j], qy[j] = e
+
+    def next_far(i, n):
+        while i < n:
+            bits = fb[i >> 5] >> (i & 31)
+            if bits:
+                f = i + (bits & -bits).bit_length() - 1
+                return min(f, n)
+            i = (i | 31) + 1
+        return n
+
+    def last_near(i, n):
+        j = n - 1
+        while j > i:
+            near = ~fb[j >> 5] & (0xFFFFFFFF >> (31 - (j & 31)))
+            if near:
+                return max((j & ~31) + near.bit_length() - 1, i)
+            j = (j & ~31) - 1
+        return i
+
+    n, i = m, 0
+    while True:
+        i = next_far(i, n)
+        if i >= n:
+            break
+        j = last_near(i, n)
+        if j > i:
+            put(i, get(j))
+            n, i = j, i + 1
+        else:
+            if i + 1 < n:
+                put(i, get(i + 1))
+            n = i
+            break
+    if math.sqrt(fx * fx + fy * fy) > rad and n > 0:
+        x, y = get(n - 1)
+        fit[y * W + x] = 0
+        cur[0] = 0
+        n -= 1
+    for j in range(ms):
+        qx[j], qy[j] = se[j]
+    return n
+
+
+@pytest.mark.parametrize("cap", [1, 5, 40, 10 ** 6])
+def test_reduce_kernel_walk_equals_plain(cap):
+    """The reducer's decomposition (flags first, the walk in runs over the
+    flag words, slots past the cap in the global queue) equals
+    radius_reducer_fifo_reference bit for bit over successive passes,
+    with and without the phantom slot."""
+    H, W = 24, 30
+    deg, sn, cs, ban, _rng = _coherent_field(12, H, W)
+    for (sy, sx) in ((12, 15), (0, 0)):
+        ban[sy, sx] = False
+        g = ogrow.grow_fifo_reference(
+            sy, sx, 2.0, torch.from_numpy(ban), torch.from_numpy(deg),
+            torch.from_numpy(sn), torch.from_numpy(cs),
+            ogrow.fifo_queue(H, W, "cpu"))
+        n0 = int(g.counts[0])
+        assert n0 > 60
+        qy, qx = g.qy.clone(), g.qx.clone()
+        n, cur, fit = g.counts[:1].clone(), g.cur.clone(), g.cur.clone()
+        mq = (qy.tolist(), qx.tolist())
+        mcur = cur.reshape(-1).to(torch.uint8).tolist()
+        mfit = list(mcur)
+        m, rad = n0, 12.0
+        for _ in range(5):
+            rad *= 0.75
+            m = _reduce_mirror(sx, sy, rad, mq[0], mq[1], m, mcur, mfit, W,
+                               cap)
+            ogrow.radius_reducer_fifo_reference(sx, sy, np.float64(rad), qy,
+                                                qx, n, cur, fit)
+            assert m == int(n[0])
+            assert mq[0][:n0] == qy[:n0].tolist()
+            assert mq[1][:n0] == qx[:n0].tolist()
+            assert mcur == cur.reshape(-1).to(torch.uint8).tolist()
+            assert mfit == fit.reshape(-1).to(torch.uint8).tolist()

@@ -138,3 +138,20 @@ def test_run_sequence(seed):
     # and with its own map prep (the driver's prepare_map)
     own = tdrv.run_sequence(ds, max_frames=4)
     assert np.array_equal(own.poses, want.poses[:4], equal_nan=True)
+
+
+@pytest.mark.parametrize("tiny", [0.0, 1e-170, 1e-300])
+def test_fuse_candidates_underflowing_square(tiny):
+    """A positive score whose square underflows to 0.0 weighs +inf, as
+    the C++ reference's 1 / (score * score) does (myFA.cpp:161): the
+    fused pose is NaN and the fused score 0.0, as for a score of 0.0."""
+    cands = [tfa.Candidate(1.0, 2.0, 0.5, tiny),
+             tfa.Candidate(3.0, 4.0, 0.1, 0.5)]
+    got = tfa.fuse_candidates(cands)
+    assert np.isnan([got.x, got.y, got.ang]).all()
+    assert got.score == 0.0
+    # a subnormal square that is not zero: 1 / 1e-320 overflows to +inf,
+    # the same result
+    sub = tfa.fuse_candidates([tfa.Candidate(1.0, 2.0, 0.5, 1e-160),
+                               tfa.Candidate(3.0, 4.0, 0.1, 0.5)])
+    assert np.isnan([sub.x, sub.y, sub.ang]).all() and sub.score == 0.0
