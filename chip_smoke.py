@@ -150,7 +150,15 @@ its own line; any failure exits non-zero before the last line:
      rollout_f32: tracked frames, position error, one launch a frame,
      scans/s (median of 3), the reconciled ATE; cli_sharded - prepare-map
      --mapprep tpu-sharded and batch --concat --temporal 8;
- 14. a JSON line of the kernels (with their launches on each path), the
+ 14. fuzz_campaign (slice 12): scripts/torch_fuzz_campaign.py's campaign
+     on the card at reduced counts (seeds 100-107 for the distance
+     field, 100-102 for wave and FIFO LSD, 100-103 for f64 rollouts with
+     seed 101's perfect-score chain, seed 100 on two ranks; then the
+     FIFO map of seed 118, whose regions need the radius reducer): the
+     oracle's contracts, card = CPU in f64, and every launch of the four
+     kernels replayed through its plain version on the CPU; its tallies,
+     launches held and wall time;
+ 15. a JSON line of the kernels (with their launches on each path), the
      nvidia-smi name/power line, and the last line
      {"ok": true, "device": {...}}.
 """
@@ -375,16 +383,12 @@ def kernel_case(name, cand, fs, ctx, cfg, coarse, device, reps, card,
     got = sc.score_partials(*args)
     torch.cuda.synchronize()
     want = sc.score_partials_reference(*args)
-    for i in (1, 3):
-        if not torch.equal(got[i], want[i]):
-            fail(f"{name}: kernel counts differ from the plain version")
-    err = 0.0
-    for i in (0, 2):
-        g, w = got[i].double(), want[i].double()
-        err = max(err, float((g - w).abs().max()))
-        if not torch.allclose(g, w, rtol=RTOL, atol=ATOL):
-            fail(f"{name}: kernel sums differ from the plain version "
-                 f"(max abs err {err})")
+    counts, sums, err = partials_agree(got, want)
+    if not counts:
+        fail(f"{name}: kernel counts differ from the plain version")
+    if not sums:
+        fail(f"{name}: kernel sums differ from the plain version "
+             f"(max abs err {err})")
     s_got = assoc.finalize_scores(cand, got[0], got[1], fs.pixels_mask.sum()
                                   .to(dt), got[2], got[3], pen)
     s_want = assoc.finalize_scores(cand, want[0], want[1],
@@ -415,6 +419,60 @@ def kernel_case(name, cand, fs, ctx, cfg, coarse, device, reps, card,
     out["floor_ms"] = floor_ms
     phase("kernel_check", **out, bound_us=out["bound_ms"] * 1e3, card=card)
     return out
+
+
+def partials_agree(got, want):
+    """(counts equal, sums within RTOL/ATOL, max abs err of the sums) of
+    two CalcScore results (sum_d, n_valid, sum_far, n_far)."""
+    import torch
+    counts = all(torch.equal(got[i], want[i]) for i in (1, 3))
+    sums, err = True, 0.0
+    for i in (0, 2):
+        g, w = got[i].double(), want[i].double()
+        if g.numel():
+            err = max(err, float((g - w).abs().max()))
+        sums = sums and torch.allclose(g, w, rtol=RTOL, atol=ATOL)
+    return counts, sums, err
+
+
+def record_partials(run, name="score_partials"):
+    """Run ``run()`` with every launch of the CalcScore wrapper ``name``
+    (score_partials or score_partials_batched) that the scorer makes
+    recorded: its arguments and outputs, copied to the CPU; returns
+    (result, calls).  A call on CPU tensors launches nothing and is not
+    recorded."""
+    import torch
+    from lsdtpu_torch.match import associate as assoc
+    wrapper = getattr(assoc, name)
+    calls = []
+
+    def cpu(x):
+        return x.cpu() if torch.is_tensor(x) else x
+
+    def rec(*args, **kw):
+        before = wrapper.launches
+        out = wrapper(*args, **kw)
+        if wrapper.launches > before:
+            calls.append(dict(name=name, args=tuple(map(cpu, args)),
+                              kw={k: cpu(v) for k, v in kw.items()},
+                              out=tuple(map(cpu, out))))
+        return out
+
+    # the scorer reaches the kernel through match/associate.py's names;
+    # the wrapper itself (and its launch count) stays as is
+    setattr(assoc, name, rec)
+    try:
+        return run(), calls
+    finally:
+        setattr(assoc, name, wrapper)
+
+
+def replay_partials(c):
+    """One recorded CalcScore launch through the plain version on the
+    CPU; returns partials_agree's (counts equal, sums within tier, err)."""
+    from lsdtpu_torch.ops import score as sc
+    want = getattr(sc, c["name"] + "_reference")(*c["args"], **c["kw"])
+    return partials_agree(c["out"], want)
 
 
 def make_scene(pillars=0):
@@ -2946,6 +3004,58 @@ def cli_sharded(scene, device, smi, kind):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# fuzz_campaign: the campaign's flags (seed 101 holds the perfect-score
+# chain), then a FIFO map whose regions need the radius reducer
+FUZZ_RUNS = (("--cache", "8", "--lsd", "3", "--fifo", "3", "--rollout", "4",
+              "--shard", "1", "--seed0", "100"),
+             ("--cache", "0", "--lsd", "0", "--fifo", "1", "--rollout", "0",
+              "--shard", "0", "--seed0", "118"))
+
+
+def fuzz_campaign(smi):
+    """fuzz_campaign: scripts/torch_fuzz_campaign.py's campaign on the
+    card for each of FUZZ_RUNS (a failure fails the run); returns
+    {"fuzz_campaign": {kernel: launches}} - this process's launches from
+    the wrappers' counts, set to 0 just before, and the two ranks'
+    lane-batched launches as the ranks counted them."""
+    import importlib.util
+    from lsdtpu_torch.ops import grow as og
+    from lsdtpu_torch.ops import nfa as onfa
+    from lsdtpu_torch.ops import score as sc
+    spec = importlib.util.spec_from_file_location(
+        "torch_fuzz_campaign", os.path.join(os.path.dirname(os.path.abspath(
+            __file__)), "scripts", "torch_fuzz_campaign.py"))
+    fc = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fc)
+    wrappers = {w.__name__: w for w in (sc.score_partials, onfa.rect_counts,
+                                        og.grow_fifo, og.radius_reducer_fifo)}
+    for w in wrappers.values():
+        w.launches = 0
+    sc.score_partials_batched.launches = 0
+    t0 = time.perf_counter()
+    held = dict.fromkeys(list(wrappers) + ["score_partials_batched"], 0)
+    runs = []
+    for argv in FUZZ_RUNS:
+        rc, res = fc.campaign(list(argv))
+        if rc != 0:
+            fail(f"fuzz_campaign {' '.join(argv)}: exit {rc}")
+        for k, v in res["launches_held"].items():
+            held[k] += v
+        runs.append({k: res[k] for k in ("seed0", "sections", "seconds")})
+    launches = {k: w.launches for k, w in wrappers.items()}
+    launches["score_partials_batched"] = held["score_partials_batched"]
+    if sc.score_partials_batched.launches:
+        fail("fuzz_campaign launched the lane-batched kernel in this "
+             "process; only its ranks should")
+    if launches != held or 0 in launches.values():
+        fail(f"fuzz_campaign: launches {launches}, held against the plain "
+             f"versions {held}")
+    phase("fuzz_campaign", card=repr(smi), runs=json.dumps(runs),
+          launches=json.dumps(launches),
+          seconds=round(time.perf_counter() - t0, 2))
+    return {"fuzz_campaign": launches}
+
+
 def main():
     import torch
     # --- 1. device ---------------------------------------------------
@@ -3619,7 +3729,10 @@ def main():
     phase("multi", card=repr(smi), launches=json.dumps(multi_paths),
           seconds=round(time.perf_counter() - t_multi, 2))
 
-    # --- 14. report ------------------------------------------------------
+    # --- 14. the fuzz campaign (slice 12) ---------------------------------
+    fuzz_paths = fuzz_campaign(smi)
+
+    # --- 15. report ------------------------------------------------------
     main_case = cases[1]      # relock frame as the main path scores it
     kern = {
         "name": "score_partials", "route": "cuda",
@@ -3736,6 +3849,8 @@ def main():
             {path: counts[k["name"]] for path, counts in cli_paths.items()})
         k["launches_by_path"].update(
             {path: counts[k["name"]] for path, counts in multi_paths.items()})
+        k["launches_by_path"].update(
+            {path: counts[k["name"]] for path, counts in fuzz_paths.items()})
     import torch.distributed as dist
     if dist.is_initialized():
         dist.destroy_process_group()    # the one-rank group of multi_world1

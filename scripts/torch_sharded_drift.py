@@ -12,8 +12,12 @@ frames, and pickle their outputs; this process holds them against
 run_sequence on the same inputs (the scene's wall lines and its f64
 distance field).  For each run it prints the largest pose difference
 over the first 12 frames (tests/test_runtime_parallel.py's length) and
-over all frames, the first frame past 1e-9 px, and whether the
-n_candidates are equal.  The last line of the output is one JSON object.
+over all frames, the first frame past 1e-9 px, whether the
+n_candidates are equal and, on the card, how many of the ranks'
+lane-batched CalcScore launches were replayed through the plain version
+on the CPU and how many differed.  The last line of the output is one
+JSON object.  ``run_ranks`` (the rank processes) also serves
+scripts/torch_fuzz_campaign.py's sharded section.
 """
 
 from __future__ import annotations
@@ -45,8 +49,14 @@ def chip_smoke():
     return cs
 
 
+RUNS = (("tp2", "make_mesh", "run_batch_sharded"),
+        ("mp2", "make_mesh_mp", "run_batch_sharded_mapblocks"))
+
+
 def rank_main(tmp, rank):
-    """One rank: both sharded rollouts of the pickled inputs."""
+    """One rank: both sharded rollouts of each pickled case.  On the card
+    every lane-batched CalcScore launch is recorded and replayed through
+    the plain version on the CPU (chip_smoke.py's record_partials)."""
     import torch
     import torch.distributed as dist
     from lsdtpu_torch.config import DEFAULT
@@ -59,20 +69,67 @@ def rank_main(tmp, rank):
     distributed.initialize(
         init_method="file://" + os.path.join(tmp, "store"), world_size=2,
         rank=rank, backend="gloo", device=dev, timeout_s=TIMEOUT_S)
-    lines, cache, *params = inp["map"]
-    ctxs = batch.batch_context([(lines, cache)], [params], DEFAULT,
-                               dtype=np.float64, device="cpu")
-    frames = {k: v[None] for k, v in inp["frames"].items()}
-    res = {}
-    for tag, make, run in (("tp2", shard.make_mesh, shard.run_batch_sharded),
-                           ("mp2", shard.make_mesh_mp,
-                            shard.run_batch_sharded_mapblocks)):
-        outs = run(frames, ctxs, make(dp=1, device=dev), DEFAULT, device=dev)
-        res[tag] = {k: outs[k][0].cpu().numpy()
-                    for k in ("pose", "n_candidates")}
+    cs = chip_smoke()
+    meshes = {tag: getattr(shard, make)(dp=1, device=dev)
+              for tag, make, _run in RUNS}
+    res = []
+    for case in inp["cases"]:
+        lines, cache, *params = case["map"]
+        ctxs = batch.batch_context([(lines, cache)], [params], DEFAULT,
+                                   dtype=np.float64, device="cpu")
+        frames = {k: v[None] for k, v in case["frames"].items()}
+        out = {}
+        for tag, _make, run in RUNS:
+            outs, calls = cs.record_partials(
+                lambda: getattr(shard, run)(frames, ctxs, meshes[tag],
+                                            DEFAULT, device=dev),
+                "score_partials_batched")
+            out[tag] = {k: outs[k][0].cpu().numpy()
+                        for k in ("pose", "score", "n_candidates")}
+            agree = [cs.replay_partials(c) for c in calls]
+            out[tag].update(held=len(calls), differ=sum(
+                not (counts and sums) for counts, sums, _e in agree),
+                max_abs_err=max((e for _c, _s, e in agree), default=0.0))
+        res.append(out)
     with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as f:
         pickle.dump(res, f)
     dist.destroy_process_group()
+
+
+def run_ranks(cases, device, threads=2):
+    """Both sharded rollouts of every case ({"map": (lines, cache, resol,
+    ori_x, ori_y), "frames": stack_frames output}) on two rank processes
+    of this file; returns ([rank 0's results, rank 1's], seconds), a
+    result a case: {run: {pose, score, n_candidates, held, differ,
+    max_abs_err}}."""
+    tmp = tempfile.mkdtemp(prefix="lsdtpu_torch_drift_")
+    try:
+        with open(os.path.join(tmp, "inputs.pkl"), "wb") as f:
+            pickle.dump(dict(cases=cases, device=str(device),
+                             threads=threads), f)
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--rank", tmp,
+             str(r)], cwd=ROOT, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for r in range(2)]
+        try:
+            logs = [q.communicate(timeout=TIMEOUT_S)[0] for q in procs]
+        finally:
+            for q in procs:
+                if q.poll() is None:
+                    q.kill()
+                    q.communicate()
+        for r, q in enumerate(procs):
+            if q.returncode != 0:
+                raise RuntimeError(f"rank {r} exited {q.returncode}: "
+                                   f"{logs[r][-3000:]}")
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
+                ranks.append(pickle.load(f))
+        return ranks, time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def main():
@@ -106,40 +163,17 @@ def main():
                              dtype=torch.float64, device=dev).cpu().numpy()
     lines = np.asarray(synth.wall_lines(scene.walls))
     fr = loop.stack_frames(ds, dtype=np.float64, max_frames=args.frames)
-    inp = dict(map=(lines, cache, p.resol, p.ori_x, p.ori_y), frames=fr,
-               device=args.device, threads=args.threads)
-    ctx = loop.make_map_context(*inp["map"], dtype=np.float64, device=dev)
+    case = dict(map=(lines, cache, p.resol, p.ori_x, p.ori_y), frames=fr)
+    ctx = loop.make_map_context(*case["map"], dtype=np.float64, device=dev)
     t0 = time.perf_counter()
     seq = loop.run_sequence(fr, ctx, DEFAULT, device=dev)
     seq = {k: seq[k].cpu().numpy() for k in ("pose", "n_candidates")}
     seq_s = time.perf_counter() - t0
-
-    tmp = tempfile.mkdtemp(prefix="lsdtpu_torch_drift_")
     try:
-        with open(os.path.join(tmp, "inputs.pkl"), "wb") as f:
-            pickle.dump(inp, f)
-        t0 = time.perf_counter()
-        procs = [subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--rank", tmp,
-             str(r)], cwd=ROOT, stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True) for r in range(2)]
-        try:
-            logs = [q.communicate(timeout=TIMEOUT_S)[0] for q in procs]
-        finally:
-            for q in procs:
-                if q.poll() is None:
-                    q.kill()
-                    q.communicate()
-        for r, q in enumerate(procs):
-            if q.returncode != 0:
-                sys.exit(f"rank {r} exited {q.returncode}: {logs[r][-3000:]}")
-        ranks = []
-        for r in range(2):
-            with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
-                ranks.append(pickle.load(f))
-        ranks_s = time.perf_counter() - t0
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        ranks, ranks_s = run_ranks([case], args.device, args.threads)
+    except RuntimeError as e:
+        sys.exit(str(e))
+    ranks = [r[0] for r in ranks]
 
     runs = []
     for tag in ("tp2", "mp2"):
@@ -152,7 +186,9 @@ def main():
                    first_frame_past_1e9=int(past[0]) if len(past) else None,
                    n_candidates_equal=all(np.array_equal(
                        res[tag]["n_candidates"], seq["n_candidates"])
-                       for res in ranks))
+                       for res in ranks),
+                   launches_held=sum(res[tag]["held"] for res in ranks),
+                   launches_differ=sum(res[tag]["differ"] for res in ranks))
         print(" ".join(f"{k}={v}" for k, v in run.items()), flush=True)
         runs.append(run)
     print(json.dumps({"runs": runs, "run_sequence_s": seq_s,

@@ -1,6 +1,7 @@
-"""Import hygiene of the port: no module of lsdtpu_torch, and not
-chip_smoke.py, imports jax or the reference package lsdtpu (the port
-keeps its own copies of what it needs)."""
+"""Import hygiene of the port: no module of lsdtpu_torch, not
+chip_smoke.py and no script of the port (scripts/torch_*.py) imports jax
+or the reference package lsdtpu (the port keeps its own copies of what
+it needs)."""
 
 import ast
 import pathlib
@@ -8,7 +9,9 @@ import pathlib
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-FILES = sorted((ROOT / "lsdtpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = (sorted((ROOT / "lsdtpu_torch").rglob("*.py"))
+         + [ROOT / "chip_smoke.py"]
+         + sorted((ROOT / "scripts").glob("torch_*.py")))
 
 
 def _imported(path):
