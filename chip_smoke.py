@@ -158,7 +158,23 @@ its own line; any failure exits non-zero before the last line:
      oracle's contracts, card = CPU in f64, and every launch of the four
      kernels replayed through its plain version on the CPU; its tallies,
      launches held and wall time;
- 15. a JSON line of the kernels (with their launches on each path), the
+ 15. the reference package's last two tools: sol_bound -
+     scripts/torch_sol_bound.py's counting rollout of the 279 frames on
+     the oracle's map of the scene (the bench's K = 4096, P = 2048, f32),
+     every CalcScore launch of the phase counted and held against its
+     plain version (the constants' timed repeats bitwise a held launch),
+     the first 12 frames' counts equal to the CPU's in f64 and in f32 but
+     on frame 3, whose one distance-gate flip is shown and traced to the
+     stages that part the devices, the card's constants (gather rates,
+     H2D, loop floor, featurize and UKF device ms) and the floor of each
+     gather count beside one timed run of the counted configuration (and
+     rollout_f32's and the strategies' times); pod_bench_w1 and
+     pod_bench_w2 - scripts/torch_pod_bench.py (60 frames, 3 repeats, all
+     four modes) in this process and as two ranks sharing the card over
+     gloo (torchrun's environment; python3 chip_smoke.py --pod-rank
+     ...), every CalcScore launch (single-lane and lane-batched) held
+     against its plain version, each SCALING json checked and printed;
+ 16. a JSON line of the kernels (with their launches on each path), the
      nvidia-smi name/power line, and the last line
      {"ok": true, "device": {...}}.
 """
@@ -195,7 +211,7 @@ FRAMES = 279  # data1's sequence length
 REPEATS = 3   # timed f32 rollouts (median reported)
 CODES_FRAMES = 60  # depth of the u16 + window rollout check
 PROFILE_FRAMES = 40  # depth of the profiled f32 rollout
-STRATEGY_REPEATS = 3  # rollout_strategies_f32: alternating runs of each
+STRATEGY_REPEATS = 2  # rollout_strategies_f32: alternating runs of each
 PILLARS = 16  # round pillars of the FIFO phases' map (sparse regions)
 FIFO_REPEATS = 3  # timed f32 map preps on the FIFO phases' map
 RTOL = 2e-6   # f32 kernel vs plain: different summation order
@@ -218,7 +234,10 @@ def phase(tag, **kw):
 
 
 def fail(msg):
+    """Print the failure on standard output and on standard error (a
+    caller that keeps only the end of either still reads it); exit 1."""
     print(f"FAILED: {msg}", flush=True)
+    print(f"FAILED: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
 
 
@@ -246,25 +265,38 @@ def time_cuda(fn, reps):
     return a.elapsed_time(b) / reps
 
 
-def device_profile(fn):
-    """Run fn under torch.profiler; returns (wall_ms, {name: [count,
-    device_us]}) of the device activities (kernels, copies) it ran."""
+def device_profile(fn, want=None, tries=3):
+    """Run fn under torch.profiler, tracing the card's activities only
+    (host-op tracing slows the host and the trace's processing, and its
+    device events came back empty late in this long process); returns
+    (wall_ms, {name: [count, device_us]}) of the device activities
+    (kernels, copies) it ran.  With ``want`` (a test of those
+    activities), fn runs and is profiled again, ``tries`` times in all,
+    while the test fails: the profiler's device events can come back
+    empty or short.  The last profile is returned either way."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
+    for _ in range(tries):
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    acts = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            a = acts.setdefault(e.name, [0, 0.0])
-            a[0] += 1
-            a[1] += e.time_range.elapsed_us()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        acts = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                a = acts.setdefault(e.name, [0, 0.0])
+                a[0] += 1
+                a[1] += e.time_range.elapsed_us()
+        if want is None or want(acts):
+            break
     return wall, acts
+
+
+def kernel_launches(acts, kernel):
+    """The profiled launches of ``kernel`` in device_profile's acts."""
+    return sum(v[0] for k, v in acts.items() if kernel in k)
 
 
 def kernel_device_ms(acts, kernel="score_partials_kernel"):
@@ -276,17 +308,20 @@ def kernel_device_ms(acts, kernel="score_partials_kernel"):
     return sum(h[1] for h in hits) / n / 1e3
 
 
-def launch_floor_ms(reps=50):
+def launch_floor_ms(reps=50, tries=3):
     """Device ms of the smallest launch: the profiler's mean time of a
-    one-element PyTorch elementwise kernel."""
+    one-element PyTorch elementwise kernel (the profile taken again when
+    its device events come back empty)."""
     import torch
     x = torch.zeros(1, device="cuda")
     x.add_(1.0)
-    _w, acts = device_profile(lambda: [x.add_(1.0) for _ in range(reps)])
+    _w, acts = device_profile(
+        lambda: [x.add_(1.0) for _ in range(reps)],
+        lambda a: any(v[0] == reps for v in a.values()), tries)
     hits = [v for v in acts.values() if v[0] == reps]
     if not hits:
-        fail(f"launch floor: no device kernel launched {reps} times "
-             f"({sorted(acts)})")
+        fail(f"launch floor: no device kernel launched {reps} times in "
+             f"{tries} profiles ({sorted(acts)})")
     return hits[0][1] / reps / 1e3
 
 
@@ -438,24 +473,25 @@ def partials_agree(got, want):
 def record_partials(run, name="score_partials"):
     """Run ``run()`` with every launch of the CalcScore wrapper ``name``
     (score_partials or score_partials_batched) that the scorer makes
-    recorded: its arguments and outputs, copied to the CPU; returns
-    (result, calls).  A call on CPU tensors launches nothing and is not
-    recorded."""
+    recorded: its arguments and outputs, cloned on the card (no host
+    sync inside a timed run; replay_partials moves them to the CPU);
+    returns (result, calls).  A call on CPU tensors launches nothing and
+    is not recorded."""
     import torch
     from lsdtpu_torch.match import associate as assoc
     wrapper = getattr(assoc, name)
     calls = []
 
-    def cpu(x):
-        return x.cpu() if torch.is_tensor(x) else x
+    def clone(x):
+        return x.clone() if torch.is_tensor(x) else x
 
     def rec(*args, **kw):
         before = wrapper.launches
         out = wrapper(*args, **kw)
         if wrapper.launches > before:
-            calls.append(dict(name=name, args=tuple(map(cpu, args)),
-                              kw={k: cpu(v) for k, v in kw.items()},
-                              out=tuple(map(cpu, out))))
+            calls.append(dict(name=name, args=tuple(map(clone, args)),
+                              kw={k: clone(v) for k, v in kw.items()},
+                              out=tuple(map(clone, out))))
         return out
 
     # the scorer reaches the kernel through match/associate.py's names;
@@ -470,9 +506,15 @@ def record_partials(run, name="score_partials"):
 def replay_partials(c):
     """One recorded CalcScore launch through the plain version on the
     CPU; returns partials_agree's (counts equal, sums within tier, err)."""
+    import torch
     from lsdtpu_torch.ops import score as sc
-    want = getattr(sc, c["name"] + "_reference")(*c["args"], **c["kw"])
-    return partials_agree(c["out"], want)
+
+    def cpu(x):
+        return x.cpu() if torch.is_tensor(x) else x
+
+    want = getattr(sc, c["name"] + "_reference")(
+        *map(cpu, c["args"]), **{k: cpu(v) for k, v in c["kw"].items()})
+    return partials_agree(tuple(map(cpu, c["out"])), want)
 
 
 def make_scene(pillars=0):
@@ -1070,30 +1112,36 @@ def fifo_map_summary(grows, reduces, acts, lat, clock, card):
     """Over one recorded FIFO map prep and the profile of the same map
     prep: each kernel's launches, mean and summed device ms, and the sum
     of its per-launch bounds (grow_bound, reduce_bound) beside it, and
-    the sum of the bounds with the serial kernels' chain ("_old")."""
+    the sum of the bounds with the serial kernels' chain ("_old").  The
+    profiler can drop a few of a long profile's device events (25 of
+    2876 grow_fifo launches in one run): the summed device ms is the
+    profiled launches' mean times the recorded launches, and the line
+    says how many it dropped.  The wrappers' counts hold the launches
+    themselves (mapprep_fifo_f32)."""
     out = {}
     for name, kernel, calls in (
             ("grow_fifo", "grow_fifo_kernel", grows),
             ("radius_reducer_fifo", "radius_reducer_fifo_kernel", reduces)):
         hits = [v for k, v in acts.items() if kernel in k]
         launches = sum(h[0] for h in hits)
-        device_ms = sum(h[1] for h in hits) / 1e3
+        if not 0 < launches <= len(calls):
+            fail(f"{name}: {launches} profiled launches for {len(calls)} "
+                 "recorded calls of the same map prep")
+        mean_ms = sum(h[1] for h in hits) / 1e3 / launches
         if name == "grow_fifo":
             bounds = [grow_bound(c, lat, clock) for c in calls]
         else:
             bounds = [reduce_bound(c, lat, clock, "float32") for c in calls]
         bound_sum = sum(b["bound_ms"] for b in bounds)
         out[name] = dict(launches=launches, recorded=len(calls),
-                         mean_ms=device_ms / launches if launches else None,
-                         device_ms=device_ms, bound_sum_ms=bound_sum,
-                         over_bound_ms=device_ms - bound_sum,
+                         profiler_dropped=len(calls) - launches,
+                         mean_ms=mean_ms, device_ms=mean_ms * len(calls),
+                         bound_sum_ms=bound_sum,
+                         over_bound_ms=mean_ms * len(calls) - bound_sum,
                          bound_sum_old_ms=sum(b["bound_old_ms"]
                                               for b in bounds))
         phase("grow_kernel_check", map="f32", kernel=name, **out[name],
               card=card)
-        if launches != len(calls) or launches == 0:
-            fail(f"{name}: {launches} profiled launches for {len(calls)} "
-                 "recorded calls of the same map prep")
     return out
 
 # --- the streaming entry point (slice 5) -------------------------------
@@ -1381,7 +1429,7 @@ TRACKING_LANES = 16    # batch_kernel_check: sixteen tracking lanes
 CROP = (700, 1100)     # the smaller map of batch_kernel_check's last lane
 BATCH_SIZES = (1, 4, 16, 64)   # batch_f32: lanes
 BATCH_FRAMES = 100     # batch_f32: frames a lane
-BATCH_REPEATS = 3      # batch_f32: timed runs at each B (median reported)
+BATCH_REPEATS = 2      # batch_f32: timed runs at each B (median reported)
 BATCH_F64_LANES = 4    # batch_f32: f64 lanes against their solo rollouts
 PROFILE_LANES = 16     # batch_f32: the profiled batch (10 frames)
 STRATEGY_LANES = (16, 64)      # batch_f32: B also timed under prefeaturize
@@ -1431,12 +1479,10 @@ def profiled_sum_ms(fn, reps, kernel, tries=3):
     """Device ms of ``kernel`` per call of fn (every launch of it that fn
     makes), from the profiler over ``reps`` calls; None when every try
     missed the kernel."""
-    for _ in range(tries):
-        _w, acts = device_profile(lambda: [fn() for _ in range(reps)])
-        hits = [v for k, v in acts.items() if kernel in k]
-        if hits:
-            return sum(h[1] for h in hits) / reps / 1e3
-    return None
+    _w, acts = device_profile(lambda: [fn() for _ in range(reps)],
+                              lambda a: kernel_launches(a, kernel), tries)
+    hits = [v for k, v in acts.items() if kernel in k]
+    return sum(h[1] for h in hits) / reps / 1e3 if hits else None
 
 
 def batch_kernel_case(name, scene, lines, cache64, cfg, device, card,
@@ -1584,7 +1630,8 @@ def rollout_strategies(fr32, fr32_dev, ctx32, cfg, device, smi, kind):
     featurize, scan_unroll 32), STRATEGY_REPEATS runs each in turn, each
     bitwise the default's, one CalcScore launch a frame; then the first
     PROFILE_FRAMES frames under prefeaturize through the profiler.
-    Returns the CalcScore launches of the timed runs."""
+    Returns (the CalcScore launches of the timed runs, {strategy: median
+    ms})."""
     from lsdtpu_torch.runtime import loop
     F = fr32["ranges"].shape[0]
 
@@ -1620,7 +1667,7 @@ def rollout_strategies(fr32, fr32_dev, ctx32, cfg, device, smi, kind):
           device_busy_ms=busy, device_idle_share=1.0 - busy / wall,
           device_ops_per_frame=sum(v[0] for v in acts.values())
           / PROFILE_FRAMES)
-    return total
+    return total, {n: float(np.median(st["ms"])) for n, st in stats.items()}
 
 
 def lane_dataset(ds, offset, frames):
@@ -2150,17 +2197,22 @@ def cli_phases(scene, device, smi, kind):
               card_vs_cpu_max_diff=d_dev, segments_8_vs_1_max_diff=d_seg)
 
         # --- profile: per-stage split of a frame, a trace of the card
+        # (run again, three times in all, while the trace's device
+        # events come back empty)
         trace = os.path.join(tmp, "trace")
-        recs, _err, launches, secs = cli_call(
-            "cli_profile", ["profile", *common, "--frames",
-                            str(CLI_FRAMES_PROFILE), "--repeats", "2",
-                            "--trace", trace])
-        by_path["cli_profile"] = launches
-        need_launches("cli_profile", launches, ("score_partials",))
-        stages, steady = recs
         path = os.path.join(trace, "trace.json")
-        with open(path) as fh:
-            has_kernel = "score_partials_kernel" in fh.read()
+        for _ in range(3):
+            recs, _err, launches, secs = cli_call(
+                "cli_profile", ["profile", *common, "--frames",
+                                str(CLI_FRAMES_PROFILE), "--repeats", "2",
+                                "--trace", trace])
+            need_launches("cli_profile", launches, ("score_partials",))
+            with open(path) as fh:
+                has_kernel = "score_partials_kernel" in fh.read()
+            if has_kernel:
+                break
+        by_path["cli_profile"] = launches
+        stages, steady = recs
         if not has_kernel:
             fail("cli_profile: the trace holds no score_partials_kernel")
         phase("cli_profile", device=repr(kind), power=repr(smi),
@@ -2318,12 +2370,17 @@ BENCH_KEYS = (
     "method", "ate_rmse_m", "tracked", "frames")
 
 
+BENCH_REPEATS = (2, 1)  # bench: its timed and frames-on-the-card repeats
+
+
 def bench_phase(data, cache_dir, device, smi, kind):
     """bench: lsdtpu_torch.bench.main over the dataset directory, in this
-    process, every kernel's launch count set to 0 just before and read
-    just after; its JSON line holds bench.py's keys, every frame
-    tracked, and each of its rollouts equals a plain run_sequence on the
-    same data and config bit for bit.  Returns the launches."""
+    process, at BENCH_REPEATS (the entry point's REPEATS and
+    RESIDENT_REPEATS, 5 and 3, cut for the run's time), every kernel's
+    launch count set to 0 just before and read just after; its JSON line
+    holds bench.py's keys, every frame tracked, and each of its rollouts
+    equals a plain run_sequence on the same data and config bit for
+    bit.  Returns the launches."""
     import torch
     from lsdtpu_torch import bench
     from lsdtpu_torch.io import loaders
@@ -2343,13 +2400,17 @@ def bench_phase(data, cache_dir, device, smi, kind):
         w.launches = 0
     out, err = io.StringIO(), io.StringIO()
     loop.run_sequence = recording
+    depth = bench.REPEATS, bench.RESIDENT_REPEATS
+    bench.REPEATS, bench.RESIDENT_REPEATS = BENCH_REPEATS
     t0 = time.perf_counter()
     try:
         with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
             rc = bench.main(data=data, device=device.type,
                             cache_dir=cache_dir)
+        rollouts = 1 + bench.REPEATS + 1 + bench.RESIDENT_REPEATS
     finally:
         loop.run_sequence = run_sequence
+        bench.REPEATS, bench.RESIDENT_REPEATS = depth
     seconds = time.perf_counter() - t0
     launches = {k: w.launches for k, w in wrappers.items()}
     lines = [ln for ln in out.getvalue().splitlines() if ln.startswith("{")]
@@ -2366,7 +2427,6 @@ def bench_phase(data, cache_dir, device, smi, kind):
         fail(f"bench: tracked {rec['tracked']} of {rec['frames']} frames")
     if rec["baseline_kind"] not in ("oracle", "cpp-reference"):
         fail(f"bench: baseline_kind {rec['baseline_kind']!r}")
-    rollouts = 1 + bench.REPEATS + 1 + bench.RESIDENT_REPEATS
     if len(poses) != rollouts or launches["score_partials"] != F * rollouts:
         fail(f"bench: {len(poses)} rollouts (expected {rollouts}), "
              f"launches {launches}")
@@ -3006,6 +3066,17 @@ def cli_sharded(scene, device, smi, kind):
 
 # fuzz_campaign: the campaign's flags (seed 101 holds the perfect-score
 # chain), then a FIFO map whose regions need the radius reducer
+def _script(name):
+    """scripts/<name>.py as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "scripts", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 FUZZ_RUNS = (("--cache", "8", "--lsd", "3", "--fifo", "3", "--rollout", "4",
               "--shard", "1", "--seed0", "100"),
              ("--cache", "0", "--lsd", "0", "--fifo", "1", "--rollout", "0",
@@ -3018,15 +3089,10 @@ def fuzz_campaign(smi):
     {"fuzz_campaign": {kernel: launches}} - this process's launches from
     the wrappers' counts, set to 0 just before, and the two ranks'
     lane-batched launches as the ranks counted them."""
-    import importlib.util
     from lsdtpu_torch.ops import grow as og
     from lsdtpu_torch.ops import nfa as onfa
     from lsdtpu_torch.ops import score as sc
-    spec = importlib.util.spec_from_file_location(
-        "torch_fuzz_campaign", os.path.join(os.path.dirname(os.path.abspath(
-            __file__)), "scripts", "torch_fuzz_campaign.py"))
-    fc = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(fc)
+    fc = _script("torch_fuzz_campaign")
     wrappers = {w.__name__: w for w in (sc.score_partials, onfa.rect_counts,
                                         og.grow_fifo, og.radius_reducer_fifo)}
     for w in wrappers.values():
@@ -3054,6 +3120,466 @@ def fuzz_campaign(smi):
           launches=json.dumps(launches),
           seconds=round(time.perf_counter() - t0, 2))
     return {"fuzz_campaign": launches}
+
+
+# --- the reference package's last two tools --------------------------------
+
+SOL_CPU_FRAMES = 12     # sol_bound: frames whose counts the CPU repeats
+SOL_F32_PINNED = (3,)   # sol_bound: frames whose f32 counts may differ
+SOL_PROFILE_FRAMES = 20  # sol_bound: profiled frames (featurize, UKF ms)
+POD_FRAMES = 60         # pod_bench: --frames (temporal at two ranks: > 56)
+POD_REPEATS = 3         # pod_bench: --repeats
+POD_TIMEOUT_S = 600     # pod_bench_w2: the ranks' join timeout
+
+
+def hold_calls(tag, calls):
+    """Every recorded CalcScore launch through its plain version on the
+    CPU; fails unless each agrees.  Returns (held, max abs err)."""
+    err = 0.0
+    for c in calls:
+        counts, sums, e = replay_partials(c)
+        if not (counts and sums):
+            fail(f"{tag}: a recorded {c['name']} launch differs from the "
+                 f"plain version (counts equal {counts}, max abs err {e})")
+        err = max(err, e)
+    return len(calls), err
+
+
+def same_launch(a, b):
+    """Whether two CalcScore launches' arguments are bitwise equal."""
+    import torch
+    return len(a) == len(b) and all(
+        torch.equal(x, y) if torch.is_tensor(x) else
+        (not torch.is_tensor(y) and x == y) for x, y in zip(a, b))
+
+
+def gate_flips(f, sides, cfg):
+    """The hypotheses of frame ``f`` whose distance gate (d <
+    max_esti_dist, match/associate.py:166-168) two counting rollouts
+    decide apart.  sides: {"card": ..., "cpu": ...}, each (per-frame
+    steps, MapContext, live count of frame f).  Each side's hypotheses
+    come from generate_candidates with no prior pose (every length-gated
+    hypothesis, in index order), d from their (rlx, rly) and the side's
+    last pose as the gate computes it; fails unless each side's count of
+    d < max_esti_dist is its live count.  The sides' hypotheses are
+    matched slot by slot where their counts agree and their features
+    agree to 1e-5 (relative and absolute).  Returns {lines_max_diff (per
+    linesInfo column, over the live lines), hypotheses, matched,
+    last_pose, flips: [{slot, d: {"<hypotheses' side>/<pose's side>":
+    d}}]}."""
+    import torch
+    from lsdtpu_torch import geometry as geo
+    from lsdtpu_torch.match import associate as assoc
+    m = cfg.match
+    got = {}
+    for side, (steps, ctx, live) in sides.items():
+        fs, state, _out = steps[f]
+        S, M = fs.lines.shape[-2], ctx.lines.shape[-2]
+        hyp = assoc.generate_candidates(
+            fs.lines, fs.lines_mask, ctx.lines, ctx.lines_mask,
+            geo.c_round(fs.lidar_pos), torch.full_like(state.last_pose, -1),
+            S * M * 4, m.ignore_scan_length, m.scan_to_map_diff,
+            m.max_esti_dist)
+        n = int(hyp.count)
+        rl = hyp.pose[:n, :2]
+        d = geo.sqrt((rl[:, 0] - state.last_pose[0]) ** 2
+                     + (rl[:, 1] - state.last_pose[1]) ** 2)
+        if int((d < m.max_esti_dist).sum()) != live:
+            fail(f"sol_bound: frame {f} on the {side}: "
+                 f"{int((d < m.max_esti_dist).sum())} hypotheses within the "
+                 f"distance gate, {live} live candidates")
+        got[side] = dict(lines=fs.lines[fs.lines_mask].cpu(),
+                         feats=hyp.feats()[:, :n].cpu(), rl=rl.cpu(),
+                         pose=state.last_pose.cpu())
+    a, b = got["card"], got["cpu"]
+    res = dict(hypotheses={k: g["rl"].shape[0] for k, g in got.items()},
+               last_pose={k: g["pose"].tolist() for k, g in got.items()},
+               lines_max_diff=None, matched=False, flips=[])
+    if a["lines"].shape == b["lines"].shape:
+        res["lines_max_diff"] = torch.where(
+            a["lines"] == b["lines"], 0.0,
+            (a["lines"] - b["lines"]).abs()).amax(0).tolist()
+    if a["feats"].shape != b["feats"].shape or not torch.allclose(
+            a["feats"], b["feats"], rtol=1e-5, atol=1e-5):
+        return res
+    res["matched"] = True
+
+    def dist(h, p):      # the gate's d, on the CPU, in the working type
+        return geo.sqrt((got[h]["rl"][:, 0] - got[p]["pose"][0]) ** 2
+                        + (got[h]["rl"][:, 1] - got[p]["pose"][1]) ** 2)
+
+    d = {f"{h}/{p}": dist(h, p) for h in got for p in got}
+    gate = {k: v < m.max_esti_dist for k, v in d.items()}
+    for i in torch.nonzero(gate["card/card"] != gate["cpu/cpu"]).flatten():
+        res["flips"].append(dict(slot=int(i), d={k: float(v[i])
+                                                 for k, v in d.items()}))
+    return res
+
+
+# sol_bound: the stages that stage_swaps computes on the CPU, alone and
+# all together
+SOL_SWAPS = (("featurize",), ("sums",), ("fuse",), ("ukf",),
+             ("featurize", "sums", "fuse", "ukf"))
+
+
+def moved(x, dev):
+    """x with every tensor in it (tuples, dataclasses) moved to dev."""
+    import torch
+    if torch.is_tensor(x):
+        return x.to(dev)
+    if isinstance(x, tuple):
+        return tuple(moved(v, dev) for v in x)
+    if dataclasses.is_dataclass(x):
+        return dataclasses.replace(x, **{
+            k.name: moved(getattr(x, k.name), dev)
+            for k in dataclasses.fields(x)})
+    return x
+
+
+def stage_swaps(f, frames, ctx, cfg, device):
+    """The card's f32 counting rollout of frames [0, f] with stages
+    computed on the CPU (their arguments moved there, their results
+    back), each of SOL_SWAPS: featurize (loop.featurize_stage),
+    CalcScore's sums (the scorer's score_partials: the plain version,
+    no launch), the candidates' fusion (associate.fuse) and the UKF
+    (ukf_step).  Returns {"+".join(swap): (live count of frame f, the
+    last pose before it)}."""
+    from lsdtpu_torch.filter import ukf as fukf
+    from lsdtpu_torch.match import associate as assoc
+    from lsdtpu_torch.runtime import loop
+    sb = _script("torch_sol_bound")
+    where = {"featurize": (loop, "featurize_stage"),
+             "sums": (assoc, "score_partials"), "fuse": (assoc, "fuse"),
+             "ukf": (fukf, "ukf_step")}
+    kept = {k: getattr(*v) for k, v in where.items()}
+
+    def on_cpu(fn):
+        def run(*a, **kw):
+            return moved(fn(*moved(a, "cpu"), **{k: moved(v, "cpu")
+                                                 for k, v in kw.items()}),
+                         device)
+        return run
+
+    out = {}
+    for swap in SOL_SWAPS:
+        steps = []
+        for k in swap:
+            setattr(*where[k], on_cpu(kept[k]))
+        try:
+            recs = sb.rollout_counts({k: v[:f + 1] for k, v in
+                                      frames.items()}, ctx, cfg, device,
+                                     steps=steps)
+        finally:
+            for k, v in where.items():
+                setattr(*v, kept[k])
+        out["+".join(swap)] = (int(recs["live_cand"][f]),
+                               steps[f][1].last_pose.cpu())
+    return out
+
+
+def f32_divergence(frames, cfg, device, recs, steps, ctx, cpu32, cpu_steps,
+                   cpu_ctx):
+    """The first frames' f32 counts, card against CPU (the counting
+    rollouts' records and steps on each): fails where they differ beyond
+    the live and survivor counts of SOL_F32_PINNED, or where a live count
+    differs by more than the distance gate's flips (gate_flips).  For
+    each differing frame: the flips, the frame's cos / sin of its angles
+    differing between the devices, the last poses' difference before
+    each frame 1..f, and the card's rollout with stages computed on the
+    CPU (stage_swaps).  Returns ({count: [differing frames]}, {frame: its
+    diagnosis})."""
+    import torch
+    n0 = len(cpu32["live_cand"])
+    differ = {k: [int(f) for f in np.flatnonzero(v != recs[k][:n0])]
+              for k, v in cpu32.items()}
+    off = {k: v for k, v in differ.items() if v and (
+        k not in ("live_cand", "n_surv") or set(v) - set(SOL_F32_PINNED))}
+    if off:
+        fail(f"sol_bound: f32 counts of the first {n0} frames differ "
+             f"between the card and the CPU beyond the pinned frames "
+             f"{SOL_F32_PINNED} and the live and survivor counts: {off}")
+    gates = {}
+    for f in sorted(set(differ["live_cand"] + differ["n_surv"])):
+        g = gate_flips(f, {"card": (steps, ctx, int(recs["live_cand"][f])),
+                           "cpu": (cpu_steps, cpu_ctx,
+                                   int(cpu32["live_cand"][f]))}, cfg)
+        shift = sum(int(fl["d"]["card/card"] < cfg.match.max_esti_dist)
+                    - int(fl["d"]["cpu/cpu"] < cfg.match.max_esti_dist)
+                    for fl in g["flips"])
+        if not g["matched"] or \
+                shift != recs["live_cand"][f] - cpu32["live_cand"][f]:
+            fail(f"sol_bound: f32 frame {f}: the live counts differ "
+                 f"(card {recs['live_cand'][f]}, CPU "
+                 f"{cpu32['live_cand'][f]}) but not by the distance gate "
+                 f"alone: {g}")
+        ang = np.asarray(frames["angles"][f])
+        g["cos_sin_differ"] = [int((fn(torch.as_tensor(ang, device=device))
+                                    .cpu() != fn(torch.as_tensor(ang)))
+                                   .sum()) for fn in (torch.cos, torch.sin)]
+        g["pose_diff_by_frame"] = [float(
+            (steps[k][1].last_pose.cpu() - cpu_steps[k][1].last_pose).abs()
+            .max()) for k in range(1, f + 1)]
+        cpu_pose = cpu_steps[f][1].last_pose
+        g["swaps"] = {k: dict(live=live, pose_equal_cpu=torch.equal(
+            pose, cpu_pose), pose_max_diff=float((pose - cpu_pose).abs()
+                                                 .max()))
+            for k, (live, pose) in stage_swaps(f, frames, ctx, cfg,
+                                               device).items()}
+        gates[f] = g
+    return differ, gates
+
+
+def sol_bound(scene, seq_ms, strategy_ms, device, smi):
+    """sol_bound: scripts/torch_sol_bound.py on the scene (the oracle's
+    map, the bench's shapes, f32, every frame), every wrapper's count
+    set to 0 just before the phase and read just after.  Every CalcScore
+    launch that the rollouts make (the counting rollout, the card's f64
+    rollout of the first SOL_CPU_FRAMES frames, f32_divergence's
+    swaps, one timed run_sequence of the counted
+    configuration, with the recorder's clones) is recorded and held
+    against the plain version; the constants' timed launches (the
+    relock frame's launch, repeated) are each bitwise the first, whose
+    arguments and output are bitwise the counting rollout's launch of
+    that frame; the wrappers' counts must equal the two.  The first
+    SOL_CPU_FRAMES frames' counts on the card equal the CPU's in f64 and
+    in f32 but where f32_divergence allows and explains them.  Prints
+    the count lines, the constants with their methods (featurize and UKF
+    profiled over the first SOL_PROFILE_FRAMES frames and scaled to all),
+    and the floor of each count beside the timed run of the counted
+    configuration and rollout_f32's and the strategies' times.  Returns
+    {"sol_bound": {kernel: launches}}."""
+    import torch
+    from lsdtpu_torch.bench import bench_cfg
+    from lsdtpu_torch.runtime import loop
+    from lsdtpu_torch.oracle import driver as odrv
+    sb = _script("torch_sol_bound")
+    t0 = time.perf_counter()
+    cfg = bench_cfg()
+    ds = scene.dataset
+    art = odrv.prepare_map(ds.map_value, ds.param.resol)
+    ctx, frames = sb.scene_context(ds, np.float32, device, art)
+    F = frames["ranges"].shape[0]
+    n0 = SOL_CPU_FRAMES
+
+    def first(dt, dev, steps=None):
+        c, fr = sb.scene_context(ds, dt, dev, art)
+        return c, sb.rollout_counts({k: v[:n0] for k, v in fr.items()}, c,
+                                    cfg, dev, steps=steps)
+
+    def phase_runs():
+        steps = []
+        t = time.perf_counter()
+        recs = sb.rollout_counts(frames, ctx, cfg, device, steps=steps)
+        count_s = time.perf_counter() - t
+        # the first frames' counts: card = CPU in f64, and in f32 but on
+        # the pinned frames
+        card64 = first(np.float64, device)[1]
+        cpu64 = first(np.float64, "cpu")[1]
+        for k, v in cpu64.items():
+            if not np.array_equal(v, card64[k]):
+                fail(f"sol_bound: f64 {k} of the first {n0} frames on the "
+                     f"card {card64[k].tolist()}, on the CPU {v.tolist()}")
+        cpu_steps = []
+        cpu_ctx, cpu32 = first(np.float32, "cpu", cpu_steps)
+        differ, gates = f32_divergence(frames, cfg, device, recs, steps, ctx,
+                                       cpu32, cpu_steps, cpu_ctx)
+        const, launch = sb.measure_constants(
+            frames, ctx, cfg, recs, sys.modules[__name__], steps,
+            SOL_PROFILE_FRAMES)
+        del steps, cpu_steps
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        host(loop.run_sequence(frames, ctx, cfg, device=device))
+        run_ms = (time.perf_counter() - t) * 1e3
+        return recs, count_s, differ, gates, const, launch, run_ms
+
+    ((recs, count_s, differ, gates, const, launch, run_ms), calls), \
+        launches, _secs = counted(lambda: record_partials(phase_runs))
+    # recorded: the counting rollout, the card's f64 frames, the frames
+    # of each swap that keeps the kernel (f32_divergence) and the timed run
+    n_rec = len(calls)
+    want = 2 * F + n0 + sum(f + 1 for f in gates) * sum(
+        "sums" not in swap for swap in SOL_SWAPS)
+    if n_rec != want or launches["score_partials"] != \
+            n_rec + launch["launches"] or \
+            sum(launches.values()) != launches["score_partials"]:
+        fail(f"sol_bound: launches {launches}; {n_rec} recorded of {want} "
+             f"rollout frames, {launch['launches']} timed")
+    f_relock = const["gather_rate"]["relock_frame"]
+    rel = calls[f_relock]
+    if not (same_launch(rel["args"], launch["args"]) and
+            same_launch(rel["out"], launch["out"])):
+        fail(f"sol_bound: the constants' CalcScore launch is not the "
+             f"counting rollout's launch of frame {f_relock}")
+    held, err = hold_calls("sol_bound", calls)
+    del calls
+
+    counts = sb.gather_counts(recs, cfg)
+    sb.print_counts(recs, counts)
+    fl = sb.floors(counts, const)
+    sb.print_bound(const, fl, smi)
+    floor = fl["floor_ms"]["as_built"]
+    best = min(strategy_ms, key=strategy_ms.get)
+    phase("sol_bound", card=repr(smi), frames=F,
+          pruned_frames=int(counts["pruned"].sum()),
+          relock=repr(recs["live_cand"][~recs["tracking"]].tolist()),
+          survivors=repr(recs["n_surv"][~recs["tracking"]].tolist()),
+          cells=json.dumps({k: int(counts[k].sum()) for k in
+                            ("useful", "as_chunked", "as_built")}),
+          gather_rate=const["gather_rate"]["value"],
+          gather_rate_which=const["gather_rate"]["which"],
+          rates=json.dumps({k: v["rate"] for k, v in
+                            const["gather_rate"]["rates"].items()}),
+          h2d_ms=const["h2d_ms"]["value"],
+          loop_floor_ms=const["loop_floor_ms"]["value"],
+          featurize_ms=const["featurize_ms"]["value"],
+          ukf_ms=const["ukf_ms"]["value"],
+          gather_ms=json.dumps(fl["gather_ms"]),
+          floor_ms=json.dumps(fl["floor_ms"]),
+          rollout_counted_cfg_ms=run_ms,
+          counted_cfg_over_floor=run_ms / floor,
+          rollout_f32_ms=seq_ms, strategies_ms=json.dumps(strategy_ms),
+          best_strategy=best,
+          cpu_f64_frames_equal=n0, f32_differ=json.dumps(differ),
+          f32_gate_flips=json.dumps(gates),
+          launches=launches["score_partials"], recorded=n_rec,
+          timed_launches=launch["launches"], held=held, differ=0,
+          max_abs_err=err, counting_s=count_s,
+          seconds=round(time.perf_counter() - t0, 2))
+    return {"sol_bound": launches}
+
+
+def run_pod_bench(argv):
+    """scripts/torch_pod_bench.py's main(argv), every wrapper's count set
+    to 0 just before and read just after, and every CalcScore launch
+    (single-lane and lane-batched) recorded on the card during the run
+    (clones: no host sync in its timed repeats), then held against the
+    plain version on the CPU.  Returns {launches, held, max_abs_err,
+    seconds}."""
+    pb = _script("torch_pod_bench")
+    ((rc, calls_b), calls_s), launches, secs = counted(
+        lambda: record_partials(lambda: record_partials(
+            lambda: pb.main(argv), "score_partials_batched"),
+            "score_partials"))
+    if rc != 0:
+        fail(f"pod_bench {' '.join(argv)}: exit {rc}")
+    n = launches["score_partials"] + launches["score_partials_batched"]
+    if len(calls_s) + len(calls_b) != n or not (
+            launches["score_partials"] and launches["score_partials_batched"]):
+        fail(f"pod_bench: launches {launches}, {len(calls_s)} + "
+             f"{len(calls_b)} recorded")
+    held, err = hold_calls("pod_bench", calls_s + calls_b)
+    return dict(launches=launches, held=held, max_abs_err=err, seconds=secs)
+
+
+def pod_rank(tmp):
+    """One rank of pod_bench_w2 (python3 chip_smoke.py --pod-rank DIR,
+    torchrun's environment set by the parent): run_pod_bench on DIR's
+    argv, its result pickled to DIR."""
+    import pickle
+    with open(os.path.join(tmp, "argv.pkl"), "rb") as f:
+        argv = pickle.load(f)
+    res = run_pod_bench(argv)
+    with open(os.path.join(tmp, f"rank{os.environ['RANK']}.pkl"),
+              "wb") as f:
+        pickle.dump(res, f)
+
+
+def check_scaling(js, world, smi):
+    """Fail unless a SCALING json has all four modes at ``world`` ranks on
+    the card."""
+    modes = ("solo", "dp", "serving", "temporal")
+    bad = [m for m in modes if m not in js or not js[m]["scans_per_sec"] > 0
+           or not np.isfinite(js[m]["median_s"])
+           or js[m]["n_repeats"] != POD_REPEATS]
+    if bad or js["backend"] != "cuda" or js["n_devices"] != world or \
+            js["frames"] != POD_FRAMES or js["card"] != smi or \
+            (js["dp"]["n_sequences"], js["serving"]["n_sessions"],
+             js["temporal"]["n_segments"]) != (world,) * 3:
+        fail(f"pod_bench at world size {world}: malformed SCALING json "
+             f"(modes {bad}): {json.dumps(js)}")
+
+
+def scaling_line(tag, res, js, smi):
+    """A pod_bench phase line (launches, held) and its SCALING json."""
+    phase(tag, card=repr(smi), launches=json.dumps(res["launches"]),
+          held=res["held"], differ=0, max_abs_err=res["max_abs_err"],
+          seconds=round(res["seconds"], 2))
+    print(json.dumps(js), flush=True)
+
+
+def pod_bench(scene, device, smi):
+    """pod_bench_w1 and pod_bench_w2: scripts/torch_pod_bench.py on the
+    scene's first POD_FRAMES frames written as a dataset directory, with
+    POD_REPEATS repeats: in this process (world size 1, on the group it
+    holds), then as two rank processes sharing the card (torchrun's
+    environment, a localhost rendezvous; the script takes gloo for ranks
+    sharing a card).  Each run's CalcScore launches held against the
+    plain version (run_pod_bench), its SCALING json checked and printed.
+    Returns {path: {kernel: launches}} (the ranks' summed)."""
+    import pickle
+    import socket
+    root = tempfile.mkdtemp(prefix="lsdtpu_torch_pod_")
+    try:
+        write_dataset(root, dataclasses.replace(scene, dataset=lane_dataset(
+            scene.dataset, 0, POD_FRAMES)))
+        base = ["--device", "cuda", "--frames", str(POD_FRAMES), "--repeats",
+                str(POD_REPEATS), "--data", root]
+        out1 = os.path.join(root, "SCALING_w1.json")
+        w1 = run_pod_bench(base + ["--out", out1])
+        with open(out1) as f:
+            js1 = json.load(f)
+        check_scaling(js1, 1, smi)
+        scaling_line("pod_bench_w1", w1, js1, smi)
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        out2 = os.path.join(root, "SCALING_w2.json")
+        with open(os.path.join(root, "argv.pkl"), "wb") as f:
+            pickle.dump(base + ["--out", out2], f)
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--pod-rank", root],
+            env=dict(os.environ, WORLD_SIZE="2", RANK=str(r),
+                     LOCAL_RANK=str(r), LOCAL_WORLD_SIZE="2",
+                     MASTER_ADDR="localhost", MASTER_PORT=str(port)),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(2)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=max(
+                    1.0, POD_TIMEOUT_S - (time.perf_counter() - t0)))[0])
+        except subprocess.TimeoutExpired:
+            for p in procs:
+                p.kill()
+                p.communicate()
+            fail(f"pod_bench_w2: the ranks outlived {POD_TIMEOUT_S} s")
+        for r, p in enumerate(procs):
+            if p.returncode != 0:
+                fail(f"pod_bench_w2: rank {r} exited {p.returncode}: "
+                     f"{logs[r][-3000:]}")
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(root, f"rank{r}.pkl"), "rb") as f:
+                ranks.append(pickle.load(f))
+        with open(out2) as f:
+            js2 = json.load(f)
+        group_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    check_scaling(js2, 2, smi)
+    if js2["dist_backend"] != "gloo" or \
+            "backend gloo, world size 2" not in logs[0]:
+        fail(f"pod_bench_w2: dist_backend {js2['dist_backend']}, not the "
+             "gloo that ranks sharing a card take")
+    w2 = dict(launches={k: sum(rk["launches"][k] for rk in ranks)
+                        for k in ranks[0]["launches"]},
+              held=sum(rk["held"] for rk in ranks),
+              max_abs_err=max(rk["max_abs_err"] for rk in ranks),
+              seconds=group_s)
+    scaling_line("pod_bench_w2", w2, js2, smi)
+    return {"pod_bench_w1": w1["launches"], "pod_bench_w2": w2["launches"]}
 
 
 def main():
@@ -3268,8 +3794,8 @@ def main():
           top=repr([(k[:60], v[0], round(v[1] / 1e3, 3)) for k, v in top]))
 
     # the execution strategies on the same frames and context
-    strategy_launches = rollout_strategies(fr32, fr32_dev, ctx32, cfg,
-                                           device, smi, kind)
+    strategy_launches, strategy_ms = rollout_strategies(
+        fr32, fr32_dev, ctx32, cfg, device, smi, kind)
 
     # --- 6. map prep (slice 2) -------------------------------------------
     from lsdtpu_torch.mapprep.pipeline import prepare_map
@@ -3732,7 +4258,11 @@ def main():
     # --- 14. the fuzz campaign (slice 12) ---------------------------------
     fuzz_paths = fuzz_campaign(smi)
 
-    # --- 15. report ------------------------------------------------------
+    # --- 15. the reference package's last two tools ------------------------
+    tool_paths = sol_bound(scene, seq32_ms, strategy_ms, device, smi)
+    tool_paths.update(pod_bench(scene, device, smi))
+
+    # --- 16. report ------------------------------------------------------
     main_case = cases[1]      # relock frame as the main path scores it
     kern = {
         "name": "score_partials", "route": "cuda",
@@ -3851,6 +4381,8 @@ def main():
             {path: counts[k["name"]] for path, counts in multi_paths.items()})
         k["launches_by_path"].update(
             {path: counts[k["name"]] for path, counts in fuzz_paths.items()})
+        k["launches_by_path"].update(
+            {path: counts[k["name"]] for path, counts in tool_paths.items()})
     import torch.distributed as dist
     if dist.is_initialized():
         dist.destroy_process_group()    # the one-rank group of multi_world1
@@ -3864,5 +4396,7 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--multi-rank"]:
         multi_rank(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]))
+    elif sys.argv[1:2] == ["--pod-rank"]:
+        pod_rank(sys.argv[2])
     else:
         main()

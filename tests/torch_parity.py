@@ -5,7 +5,9 @@ oracle) go through both packages, and numpy arrays carry the data
 between them."""
 
 import functools
+import importlib.util
 import math
+import pathlib
 
 import jax
 import jax.numpy as jnp
@@ -30,7 +32,17 @@ from lsdtpu_torch.runtime import online as tonline
 from test_fuzz_parity import synth_dataset
 
 CPU = torch.device("cpu")
+SCRIPTS = pathlib.Path(__file__).resolve().parent.parent / "scripts"
 INC = 2.0 * np.pi / 360   # the raycaster's angle step (360 rays)
+
+
+def load_script(name):
+    """scripts/<name>.py as a module."""
+    spec = importlib.util.spec_from_file_location(name, SCRIPTS / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
 
 # the suite runs several worker processes, each beside XLA's own thread
 # pool: one intra-op thread per process keeps the CPU from oversubscribing
