@@ -26,25 +26,25 @@ its own line; any failure exits non-zero before the last line:
      unpruned path, with times, the bound, the floor, the launch counts
      and 50 repeated launches bitwise equal to the first;
   5. rollout: f64 on the card vs the CPU (identical decisions), then f32
-     on the card, 3 repeats timed to value, with the kernel's launch
+     on the card, 2 repeats timed to value, with the kernel's launch
      count checked against one launch per frame (wall-segment lines, as
      before map prep was ported, so the numbers stay comparable); then
      rollout_strategies_f32 - the same 279 frames under each
      execution strategy (the default loop, the default with the frames on
      the host, prefeaturize, scan_unroll 8 with and without the batched
-     featurize, scan_unroll 32), 3 runs each in turn (A B C ... A B C):
+     featurize, scan_unroll 32), one run each in turn (A B C ...):
      time to value, scans/s, RDP host rounds, one CalcScore launch a
      frame, the peak device memory, every run bitwise the default's; and
      the device idle share of PROFILE_FRAMES frames under prefeaturize;
   6. map prep: f64 on the card vs the CPU (the same lines within 1e-6
      px, the distance field bit-exact, one NFA kernel launch per count
-     call), f32 on the card timed to value (median of 3) with the seed
+     call), f32 on the card timed to value (median of 2) with the seed
      walk's counters and the device idle share, then the NFA kernel
      against its plain version on every launch the two runs made, on
      degenerate rectangles, and timed (with the bitwise repeat check) on
      three recorded batches;
   7. end to end: grid -> prepare_map (f32, card) -> make_map_context ->
-     run_sequence of the 279 frames, 3 repeats, tracked frames and the
+     run_sequence of the 279 frames, 2 repeats, tracked frames and the
      position error against the true trajectory; then the CalcScore
      kernel at that path's relock frame (the port's own LSD lines, its
      K cap of 4096: the main path's largest launch), pruned and
@@ -69,7 +69,7 @@ its own line; any failure exits non-zero before the last line:
      prep timed to value with the counters, a sample of the f32 launches
      replayed, and each FIFO kernel's launches, mean and summed device ms
      and summed per-launch bounds over that map prep; then grid -> FIFO
-     map prep -> rollout of the 279 frames, 3 repeats, with every kernel's
+     map prep -> rollout of the 279 frames, 2 repeats, with every kernel's
      launches counted from 0 over that run;
  10. the streaming entry point (slice 5), on the same scene:
      online_f32 - the 279 scans as ROS-shaped LaserScans (INF where a
@@ -78,14 +78,18 @@ its own line; any failure exits non-zero before the last line:
      max) and scans/s, bitwise equal to run_sequence on the same
      compacted frames, one CalcScore launch per scan, and a checkpoint
      saved after frame 140 resumed in a fresh session, bitwise equal to
-     the uninterrupted run; online_polish_f64 - 30 scans with
+     the uninterrupted run; checkpoint_dcp (slice 14) - the same state
+     through save_state_dcp / load_state_dcp on the card (bytes, save and
+     load ms, median of 3), bitwise the npz-restored state, and a session
+     with the npz's odometry anchor and the DCP state resuming bitwise;
+     online_polish_f64 - 30 scans with
      match.polish_pose, card vs CPU in f64 (identical decisions, poses
      within 1e-6 px); online_legacy - LsdRosAdapter(mode="legacy") over
      fake /map_metadata, /map (map prep on the card: wave, z = 2, f32;
      NFA launches equal to its count calls, time to value) and 279 /scan
      messages (legacy poses, latency, position error), then f64 legacy
      sessions on the card and the CPU on the adapter's artifacts: the
-     same first-minimum pose on every frame;
+     same first-minimum pose on each of the first 140 frames;
  11. batched rollouts and the serving pool (slice 6), on the same scene
      and the pillar map: batch_kernel_check - the lane-batched CalcScore
      launch at 8 lanes (the relock frame beside seven tracking frames,
@@ -95,13 +99,17 @@ its own line; any failure exits non-zero before the last line:
      repeats bitwise, device ms against the sum of the single launches,
      the lanes' summed bound and the floor; batch_f32 - run_batch over 1,
      4, 16 and 64 lanes of 100 frames (the lanes alternating between the
-     two maps, each from its own frame offset): time to value (median of
-     3), scans/s,
+     two maps, each from its own frame offset): time to value (one run),
+     scans/s,
      one batched CalcScore launch a frame, RDP rounds a frame, the device
      idle share of the 16-lane batch; at 16 and 64 lanes the runs
      alternate with as many under prefeaturize, bitwise the default's
      (rollout_strategies_batch_f32, the same numbers as the single
-     sequence's strategies); f64 lanes against their solo
+     sequence's strategies); checkpoint_dcp of the 16 lanes - stepped
+     frame by frame (bitwise run_batch), checkpointed after frame 50 as
+     npz and DCP (the DCP state bitwise the npz's, the remaining frames
+     resumed from it bitwise), the end state saved and loaded, timed;
+     f64 lanes against their solo
      rollouts on the card (identical decisions, poses within 1e-6 px);
      serving_f32 - a 16-slot SessionPool with 1, 4 and 16 active robots
      (per-tick latency to numpy, scans/s, one launch a tick), a robot
@@ -128,9 +136,9 @@ its own line; any failure exits non-zero before the last line:
      the oracle's host time, and a streaming pass over them tracking
      every frame; and bench - lsdtpu_torch.bench.main over the dataset
      directory: its JSON line with bench.py's keys and backend "cuda",
-     every frame tracked, the baseline kind, each of its 10 rollouts
-     bit for bit a plain run_sequence, and frames x 10 CalcScore
-     launches;
+     every frame tracked, the baseline kind, each of its rollouts
+     (BENCH_REPEATS, each after a warm one) bit for bit a plain
+     run_sequence, and one CalcScore launch a frame of each;
  13. the multi-device runners (slice 8): multi_world1 - run_batch_sharded
      (tp) and run_batch_sharded_mapblocks (mp) over one rank (NCCL) on
      two f64 lanes of the two maps, each bitwise run_batch, and the pod
@@ -145,10 +153,13 @@ its own line; any failure exits non-zero before the last line:
      frame a rank, the mp ranks' row0), the pipelined rollout (bitwise
      run_sequence), a 2 x 8 slot pool against a 16-slot pool, the sharded
      wave LSD (f32, f64) against the unsharded one, with each rank's NFA
-     launches equal to its count calls; multi_temporal - the whole
+     launches equal to its count calls, and checkpoint_dcp - both ranks
+     save one replicated state to one DCP checkpoint under the group (one
+     .metadata, each field stored once) and load it back bitwise;
+     multi_temporal - the whole
      sequence as 8 and 16 segments (the lanes of one rollout) against
      rollout_f32: tracked frames, position error, one launch a frame,
-     scans/s (median of 3), the reconciled ATE; cli_sharded - prepare-map
+     scans/s (median of 2), the reconciled ATE; cli_sharded - prepare-map
      --mapprep tpu-sharded and batch --concat --temporal 8;
  14. fuzz_campaign (slice 12): scripts/torch_fuzz_campaign.py's campaign
      on the card at reduced counts (seeds 100-107 for the distance
@@ -169,7 +180,7 @@ its own line; any failure exits non-zero before the last line:
      H2D, loop floor, featurize and UKF device ms) and the floor of each
      gather count beside one timed run of the counted configuration (and
      rollout_f32's and the strategies' times); pod_bench_w1 and
-     pod_bench_w2 - scripts/torch_pod_bench.py (60 frames, 3 repeats, all
+     pod_bench_w2 - scripts/torch_pod_bench.py (60 frames, 1 repeat, all
      four modes) in this process and as two ranks sharing the card over
      gloo (torchrun's environment; python3 chip_smoke.py --pod-rank
      ...), every CalcScore launch (single-lane and lane-batched) held
@@ -208,12 +219,13 @@ OPS_PER_PAIR = 16
 # the scene: seed 1 gives a 1072-candidate relock frame, data1's scale
 SCENE_SEED = 1
 FRAMES = 279  # data1's sequence length
-REPEATS = 3   # timed f32 rollouts (median reported)
+REPEATS = 2   # timed f32 rollouts (median reported)
 CODES_FRAMES = 60  # depth of the u16 + window rollout check
 PROFILE_FRAMES = 40  # depth of the profiled f32 rollout
-STRATEGY_REPEATS = 2  # rollout_strategies_f32: alternating runs of each
+STRATEGY_REPEATS = 1  # rollout_strategies_f32: runs of each, in turn
 PILLARS = 16  # round pillars of the FIFO phases' map (sparse regions)
-FIFO_REPEATS = 3  # timed f32 map preps on the FIFO phases' map
+FIFO_REPEATS = 2  # timed f32 map preps on the FIFO phases' map
+MAPPREP_REPEATS = 2  # timed f32 wave map preps of the scene
 RTOL = 2e-6   # f32 kernel vs plain: different summation order
 ATOL = 2e-6
 
@@ -1148,7 +1160,68 @@ def fifo_map_summary(grows, reduces, acts, lat, clock, card):
 
 CHECKPOINT_AFTER = 140  # online_f32 saves its session after this frame
 POLISH_FRAMES = 30      # depth of the f64 polish check, card vs CPU
+LEGACY_F64_FRAMES = 140  # depth of the f64 legacy check, card vs CPU
 SCAN_INC = 2.0 * np.pi / 360  # the raycaster's ray step (360 rays)
+CKPT_REPEATS = 3        # checkpoint_dcp: timed saves and loads (median)
+BATCH_CKPT_AFTER = 50   # checkpoint_dcp: the batch's checkpoint frame
+
+
+def same_state(a, b):
+    """The first field in which two TrackStates differ in dtype, shape,
+    device or any bit, or None."""
+    import torch
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if (x.dtype, x.shape, x.device) != (y.dtype, y.shape, y.device):
+            return f.name
+        if x.is_floating_point():
+            view = {2: torch.int16, 4: torch.int32, 8: torch.int64}[
+                x.element_size()]
+            x, y = x.view(view), y.view(view)
+        if not torch.equal(x, y):
+            return f.name
+    return None
+
+
+def dcp_timed(path, state, device):
+    """save_state_dcp of ``state`` at ``path`` CKPT_REPEATS times (each
+    replacing the last), then load_state_dcp onto ``device`` as often:
+    (median save ms, median load ms, bytes on disk, the last load)."""
+    import torch
+    from lsdtpu_torch.runtime.checkpoint import load_state_dcp, save_state_dcp
+    save, load = [], []
+    for _ in range(CKPT_REPEATS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_state_dcp(path, state)
+        save.append((time.perf_counter() - t0) * 1e3)
+    for _ in range(CKPT_REPEATS):
+        t0 = time.perf_counter()
+        back = load_state_dcp(path, device=device)
+        torch.cuda.synchronize()
+        load.append((time.perf_counter() - t0) * 1e3)
+    nbytes = sum(os.path.getsize(os.path.join(path, n))
+                 for n in os.listdir(path))
+    return float(np.median(save)), float(np.median(load)), nbytes, back
+
+
+def step_loop(state, fr, ctx, cfg, frames):
+    """loop.rollout's plain loop from ``state`` over ``frames`` of fr
+    (stacked frames on the device, frame axis first): the state after
+    the last frame and the outputs as numpy arrays, frame axis first."""
+    import torch
+    from lsdtpu_torch.runtime import loop
+    coarse = loop.prepare_coarse(ctx, cfg)
+    outs = []
+    for f in frames:
+        fr_f = {k: v[f] for k, v in fr.items()}
+        state = loop.reset_carry(state, fr_f)
+        state, out = loop.localization_step(
+            state, tuple(fr_f[k] for k in loop._FRAME_KEYS), ctx, cfg,
+            coarse=coarse)
+        outs.append(out)
+    return state, {k: torch.stack([o[k] for o in outs]).cpu().numpy()
+                   for k in outs[0]}
 
 
 def rmse_m(poses_px, scene, tracked):
@@ -1226,8 +1299,11 @@ def first_difference(a, b, keys):
 def online_tracking(scene, lines, cache64, cfg, device, smi, kind):
     """online_f32: the scans through OnlineLocalizer.push_laser_scan on
     the card, against run_sequence on the same compacted frames, with a
-    checkpoint after CHECKPOINT_AFTER frames resumed in a fresh session.
-    Returns the CalcScore launches of the streamed run."""
+    checkpoint after CHECKPOINT_AFTER frames resumed in a fresh session;
+    then checkpoint_dcp: the same state through save_state_dcp (timed),
+    loaded onto the card bitwise the npz's, and a session with the npz's
+    odometry anchor and the DCP state resuming bitwise.  Returns the
+    CalcScore launches of the streamed run."""
     import tempfile
     from lsdtpu_torch.ops import score as sc
     from lsdtpu_torch.runtime import loop
@@ -1249,20 +1325,32 @@ def online_tracking(scene, lines, cache64, cfg, device, smi, kind):
     loc = session()
     stream(push(loc), scans, ds, range(3))           # warm-up
     loc.reset()
+    held = {}
     with tempfile.TemporaryDirectory() as tmp:
-        ckpt = f"{tmp}/session.npz"
+        ckpt, ckpt_dcp = f"{tmp}/session.npz", f"{tmp}/session.dcp"
 
         def save(f):
             if f + 1 == CHECKPOINT_AFTER:
                 loc.save(ckpt)
+                held["dcp"] = dcp_timed(ckpt_dcp, loc.state, device)
 
         sc.score_partials.launches = 0
         got, lat = stream(push(loc), scans, ds, range(F), after=save)
         launches = sc.score_partials.launches
         resumed = session()
         resumed.restore(ckpt)
+        bad = same_state(held["dcp"][3], resumed.state)
+        if bad is not None:
+            fail(f"checkpoint_dcp: the DCP state's {bad} differs from the "
+                 "npz-restored state")
         tail, _ = stream(push(resumed), scans, ds,
                          range(CHECKPOINT_AFTER, F))
+        # the npz gives the session its odometry anchor, DCP its state
+        from_dcp = session()
+        from_dcp.restore(ckpt)
+        from_dcp.state = held["dcp"][3]
+        tail_dcp, _ = stream(push(from_dcp), scans, ds,
+                             range(CHECKPOINT_AFTER, F))
     if launches != F:
         fail(f"online_f32: {launches} CalcScore launches for {F} scans")
     fr = loop.stack_frames(ds, dtype=np.float32)
@@ -1290,6 +1378,16 @@ def online_tracking(scene, lines, cache64, cfg, device, smi, kind):
           score_launches=launches, tracked=int(tracked.sum()),
           rmse_m=rmse_m(got["pose"], scene, tracked), **latency_stats(lat),
           first_scan_ms=lat[0])
+    diff = first_difference(tail_dcp, ref, keys)
+    if diff is not None:
+        fail(f"checkpoint_dcp: frame {CHECKPOINT_AFTER + diff} resumed from "
+             "the DCP state differs from the uninterrupted session")
+    save_ms, load_ms, nbytes, _ = held["dcp"]
+    phase("checkpoint_dcp", case="'session'", card=repr(smi), ranks=1,
+          dtype="'float32'", after_frame=CHECKPOINT_AFTER, bytes=nbytes,
+          save_ms=save_ms, load_ms=load_ms, repeats=CKPT_REPEATS,
+          state_vs_npz="bitwise", resumed_frames=F - CHECKPOINT_AFTER,
+          resume="bitwise")
     return launches
 
 
@@ -1338,7 +1436,8 @@ def online_legacy(scene, cfg, device, smi, kind):
     """online_legacy: LsdRosAdapter(mode="legacy") on the card over fake
     /map_metadata, /map and /scan messages (map prep on the card: wave,
     z = 2, f32), then f64 legacy sessions on the card and the CPU on the
-    adapter's artifacts: the same first-minimum pose on every frame.
+    adapter's artifacts: the same first-minimum pose on each of the first
+    LEGACY_F64_FRAMES frames.
     Returns the NFA launches of the adapter's map prep."""
     import torch
     from lsdtpu_torch.ops import nfa as onfa
@@ -1395,9 +1494,10 @@ def online_legacy(scene, cfg, device, smi, kind):
         t0 = time.perf_counter()
         runs.append(stream(
             lambda r, _odom: loc.push_laser_scan(r, 0.0, SCAN_INC),
-            scans, ds, range(F))[0])
+            scans, ds, range(LEGACY_F64_FRAMES))[0])
         secs.append(round(time.perf_counter() - t0, 2))
     a, b = runs
+    F = LEGACY_F64_FRAMES
     # the same candidate: the same floored pixel, its heading within
     # 1e-12 rad (the card's atan is not the CPU's to the ulp)
     differ = [f for f in range(F)
@@ -1429,7 +1529,7 @@ TRACKING_LANES = 16    # batch_kernel_check: sixteen tracking lanes
 CROP = (700, 1100)     # the smaller map of batch_kernel_check's last lane
 BATCH_SIZES = (1, 4, 16, 64)   # batch_f32: lanes
 BATCH_FRAMES = 100     # batch_f32: frames a lane
-BATCH_REPEATS = 2      # batch_f32: timed runs at each B (median reported)
+BATCH_REPEATS = 1      # batch_f32: timed runs at each B (median reported)
 BATCH_F64_LANES = 4    # batch_f32: f64 lanes against their solo rollouts
 PROFILE_LANES = 16     # batch_f32: the profiled batch (10 frames)
 STRATEGY_LANES = (16, 64)      # batch_f32: B also timed under prefeaturize
@@ -1755,6 +1855,7 @@ def batch_rollouts(maps, cfg, device, smi, kind):
                   device_ops_per_frame=sum(v[0] for v in acts.values()) / 10,
                   score_kernel_ms=sum(v[1] for k, v in acts.items()
                                       if "score_partials_kernel" in k) / 1e3)
+            batch_checkpoint(fr, ctxs, cfg, res, device, smi)
         del fr, ctxs, runs, res
     # f64: each lane against its solo rollout on the card
     dss, fr, ctxs = lanes(BATCH_F64_LANES, np.float64)
@@ -1782,6 +1883,63 @@ def batch_rollouts(maps, cfg, device, smi, kind):
     phase("batch_f64_parity", card=repr(smi), lanes=BATCH_F64_LANES,
           frames=F, decisions="identical", max_pose_diff_px=worst)
     return total, strategy_total
+
+
+def batch_checkpoint(fr, ctxs, cfg, want, device, smi):
+    """checkpoint_dcp of a batch: batch_f32's lanes through the rollout's
+    plain loop step by step (bitwise the run's outputs ``want``),
+    checkpointed after BATCH_CKPT_AFTER frames as npz and DCP: the DCP
+    state bitwise the npz's, and from it the remaining frames bitwise
+    the run's; then the state at the end of the run saved and loaded
+    (timed) bitwise."""
+    from lsdtpu_torch.runtime import loop
+    from lsdtpu_torch.runtime.checkpoint import (load_state,
+                                                 load_state_dcp, save_state,
+                                                 save_state_dcp)
+    fr = {k: v.transpose(0, 1).contiguous() for k, v in fr.items()}
+    F, B = fr["ranges"].shape[:2]
+    bcfg = loop.batched_cfg(cfg)
+    mid, head = step_loop(loop.init_state(fr["ranges"].dtype, device,
+                                          lanes=B),
+                          fr, ctxs, bcfg, range(BATCH_CKPT_AFTER))
+    with tempfile.TemporaryDirectory() as tmp:
+        npz, ck = f"{tmp}/lanes.npz", f"{tmp}/lanes.dcp"
+        save_state(npz, mid)
+        save_state_dcp(ck, mid)
+        got = load_state_dcp(ck, device=device)
+        for other, what in ((load_state(npz, device=device), "npz-restored"),
+                            (mid, "saved")):
+            bad = same_state(got, other)
+            if bad is not None:
+                fail(f"checkpoint_dcp lanes{B}: the DCP state's {bad} "
+                     f"differs from the {what} state")
+        end, tail = step_loop(mid, fr, ctxs, bcfg,
+                              range(BATCH_CKPT_AFTER, F))
+        whole = {k: np.concatenate([head[k], tail[k]]).swapaxes(0, 1)
+                 for k in head}
+        bad = same_outputs(whole, want)
+        if bad is not None:
+            fail(f"checkpoint_dcp lanes{B}: the step loop's {bad} differs "
+                 "from run_batch's")
+        end_dcp, tail_dcp = step_loop(got, fr, ctxs, bcfg,
+                                      range(BATCH_CKPT_AFTER, F))
+        bad = same_outputs(tail_dcp, tail) or same_state(end_dcp, end)
+        if bad is not None:
+            fail(f"checkpoint_dcp lanes{B}: resumed from the DCP state, "
+                 f"{bad} differs from the uninterrupted run")
+        save_ms, load_ms, nbytes, back = dcp_timed(f"{tmp}/end.dcp", end,
+                                                   device)
+    bad = same_state(back, end)
+    if bad is not None:
+        fail(f"checkpoint_dcp lanes{B}: the end state's {bad} differs after "
+             "the round trip")
+    phase("checkpoint_dcp", case=f"'lanes{B}'", card=repr(smi), ranks=1,
+          dtype=repr(str(fr["ranges"].dtype)[6:]), lanes=B, frames=F,
+          bytes=nbytes, save_ms=save_ms, load_ms=load_ms,
+          repeats=CKPT_REPEATS, steps_vs_run_batch="bitwise",
+          after_frame=BATCH_CKPT_AFTER, state_vs_npz="bitwise",
+          resumed_frames=F - BATCH_CKPT_AFTER, resume="bitwise",
+          end_state="bitwise")
 
 
 def serving(maps, cfg, device, smi, kind):
@@ -2370,7 +2528,7 @@ BENCH_KEYS = (
     "method", "ate_rmse_m", "tracked", "frames")
 
 
-BENCH_REPEATS = (2, 1)  # bench: its timed and frames-on-the-card repeats
+BENCH_REPEATS = (1, 1)  # bench: its timed and frames-on-the-card repeats
 
 
 def bench_phase(data, cache_dir, device, smi, kind):
@@ -2706,8 +2864,9 @@ def multi_rank(tmp, rank, world):
     --multi-rank DIR RANK WORLD): joins a gloo group through a file store
     in DIR on the parent's device (card 0), runs the tp = 2 and mp = 2
     rollouts, the pipelined rollout, the 2 x 8 slot pool and the sharded
-    LSD (f32, f64), each with every kernel's launches counted, and
-    pickles the results to DIR."""
+    LSD (f32, f64), each with every kernel's launches counted, then
+    saves and loads one DCP checkpoint of a replicated state with the
+    other rank, and pickles the results to DIR."""
     import pickle
     import torch
     import torch.distributed as dist
@@ -2716,8 +2875,8 @@ def multi_rank(tmp, rank, world):
     from lsdtpu_torch.mapprep.stats import MapPrepStats
     from lsdtpu_torch.match import associate as assoc
     from lsdtpu_torch.ops import nfa as onfa
-    from lsdtpu_torch.runtime import (batch, distributed, loop, pipeline,
-                                      shard)
+    from lsdtpu_torch.runtime import (batch, convert, distributed, loop,
+                                      pipeline, shard)
     from lsdtpu_torch.runtime.serving import make_pool_mesh
     torch.backends.cuda.matmul.allow_tf32 = False
     with open(os.path.join(tmp, "inputs.pkl"), "rb") as f:
@@ -2784,6 +2943,14 @@ def multi_rank(tmp, rank, world):
             nfa_checked=len(calls), nfa_differ=differ,
             nfa_blocks=sorted({(int(b[0]), int(b[1]), d.shape[0])
                                for d, _s, _a, _l, b in calls}))
+    # one replicated state saved by both ranks to one DCP checkpoint under
+    # the group, then loaded back by both
+    st = convert.track_state_from_numpy(**inp["ckpt_state"], device=dev)
+    save_ms, load_ms, nbytes, back = dcp_timed(
+        os.path.join(tmp, "state.dcp"), st, dev)
+    res["checkpoint_dcp"] = dict(
+        state=convert.track_state_to_numpy(back), differs=same_state(back, st),
+        save_ms=save_ms, load_ms=load_ms, bytes=nbytes)
     with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as f:
         pickle.dump(res, f)
     dist.destroy_process_group()
@@ -2798,13 +2965,20 @@ def multi_two_ranks(scene, lines, cache64, scene_p, pillar, cfg, device,
     import pickle
     import torch
     from lsdtpu_torch.mapprep import lsd
+    from torch.distributed.checkpoint import FileSystemReader
     from lsdtpu_torch.mapprep.stats import MapPrepStats
-    from lsdtpu_torch.runtime import loop
+    from lsdtpu_torch.runtime import convert, loop
     inp = rank_inputs(scene, lines, cache64, scene_p, pillar, cfg)
     inp["device"] = device.type          # the ranks' device: card 0
     ctx = loop.make_map_context(*inp["map"], dtype=np.float64, device=device)
     seq, _l, seq_s = counted(lambda: loop.run_sequence(inp["frames"], ctx,
                                                        cfg, device=device))
+    # the state both ranks checkpoint: the sequence's after 12 frames
+    ckpt_state, _o = step_loop(
+        loop.init_state(torch.float64, device),
+        loop.to_device(inp["frames"], device), ctx, cfg,
+        range(PARALLEL_FRAMES))
+    inp["ckpt_state"] = convert.track_state_to_numpy(ckpt_state)
     seq = {k: v.cpu().numpy() for k, v in seq.items()}
     pool_want, _l, pool_s = counted(lambda: pool_ticks(inp, cfg, device))
     lsd_want = {}
@@ -2843,6 +3017,12 @@ def multi_two_ranks(scene, lines, cache64, scene_p, pillar, cfg, device,
         for r in range(2):
             with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
                 ranks.append(pickle.load(f))
+        ck = os.path.join(tmp, "state.dcp")
+        ck_files = sorted(os.listdir(ck))
+        ck_stored = sorted(i.fqn for i in FileSystemReader(ck)
+                           .read_metadata().storage_data)
+        ck_left = sorted(n for n in os.listdir(tmp)
+                         if n.startswith("state.dcp."))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     F = RANK_FRAMES
@@ -2965,6 +3145,30 @@ def multi_two_ranks(scene, lines, cache64, scene_p, pillar, cfg, device,
               seconds_by_rank=repr([round(res[key]["seconds"], 2)
                                     for res in ranks]),
               unsharded_seconds=round(w_s, 2))
+    want = inp["ckpt_state"]
+    if ck_files.count(".metadata") != 1 or ck_left or \
+            ck_stored != sorted(want):
+        fail(f"checkpoint_dcp two_ranks: the checkpoint holds {ck_files}, "
+             f"stores {ck_stored}, leaves {ck_left}")
+    for r, res in enumerate(ranks):
+        got = res["checkpoint_dcp"]
+        bad = got["differs"] or next(
+            (k for k in want if got["state"][k].dtype != want[k].dtype
+             or got["state"][k].shape != want[k].shape
+             or got["state"][k].tobytes() != want[k].tobytes()), None)
+        if bad is not None:
+            fail(f"checkpoint_dcp two_ranks: rank {r} loaded {bad} otherwise "
+                 "than the saved state")
+    phase("checkpoint_dcp", case="'two_ranks'", card=repr(smi), ranks=2,
+          backend=repr(ranks[0]["backend"]), dtype="'float64'",
+          after_frame=PARALLEL_FRAMES, files=repr(ck_files),
+          fields_stored_once=True,
+          bytes=ranks[0]["checkpoint_dcp"]["bytes"],
+          save_ms_by_rank=repr([res["checkpoint_dcp"]["save_ms"]
+                                for res in ranks]),
+          load_ms_by_rank=repr([res["checkpoint_dcp"]["load_ms"]
+                                for res in ranks]),
+          repeats=CKPT_REPEATS, loaded="'bitwise, each rank'")
     phase("multi_two_ranks", card=repr(smi), ranks=2, backend="'gloo'",
           group_seconds=round(group_s, 2))
     return paths
@@ -3128,7 +3332,7 @@ SOL_CPU_FRAMES = 12     # sol_bound: frames whose counts the CPU repeats
 SOL_F32_PINNED = (3,)   # sol_bound: frames whose f32 counts may differ
 SOL_PROFILE_FRAMES = 20  # sol_bound: profiled frames (featurize, UKF ms)
 POD_FRAMES = 60         # pod_bench: --frames (temporal at two ranks: > 56)
-POD_REPEATS = 3         # pod_bench: --repeats
+POD_REPEATS = 1         # pod_bench: --repeats
 POD_TIMEOUT_S = 600     # pod_bench_w2: the ranks' join timeout
 
 
@@ -3859,7 +4063,7 @@ def main():
     _l32, calls32 = record_rect_counts(lambda: prep32(MapPrepStats()))
     times, sts = [], []
     onfa.rect_counts.launches = 0
-    for _ in range(3):
+    for _ in range(MAPPREP_REPEATS):
         sts.append(MapPrepStats())
         torch.cuda.synchronize()
         t0 = time.perf_counter()

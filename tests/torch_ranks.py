@@ -202,6 +202,16 @@ def job_pool(rank, world, capacity, canvas, sessions, ticks):
     return out
 
 
+def job_checkpoint_dcp(rank, world, path, state):
+    """Every rank saves the same state (numpy fields) to one DCP
+    checkpoint under the group, then loads it back."""
+    from lsdtpu_torch.runtime import checkpoint, convert
+    checkpoint.save_state_dcp(
+        path, convert.track_state_from_numpy(**state, device="cpu"))
+    return convert.track_state_to_numpy(
+        checkpoint.load_state_dcp(path, device="cpu"))
+
+
 JOBS = {k[4:]: v for k, v in dict(globals()).items()
         if k.startswith("job_")}
 
