@@ -229,7 +229,8 @@ def cmd_run(args) -> int:
     ctx = _context(args, ds, lines, cache, cfg, dtype)
     frames = stack_frames(ds, dtype=dtype, max_frames=args.frames)
     t0 = time.perf_counter()
-    outs = to_host(run_sequence(frames, ctx, cfg, device=args.device))
+    outs = to_host(run_sequence(frames, ctx, cfg, device=args.device),
+                   "cli.outputs")
     dt = time.perf_counter() - t0
     F = frames["ranges"].shape[0]
     poses, scores = outs["pose"], outs["score"]
@@ -351,7 +352,8 @@ def cmd_refine(args) -> int:
     lines, cache = _prepare(args, ds, cfg)
     ctx = _context(args, ds, lines, cache, cfg, dtype)
     frames = stack_frames(ds, dtype=dtype, max_frames=args.frames)
-    outs = to_host(run_sequence(frames, ctx, cfg, device=args.device))
+    outs = to_host(run_sequence(frames, ctx, cfg, device=args.device),
+                   "cli.outputs")
     F = outs["pose"].shape[0]
     segments = args.segments
     meas, scores, u = refine_inputs(outs, segments)

@@ -17,7 +17,8 @@ minimum-rank eligible parent, and the new wave's ranks are the dense
 sort order of (parent_rank, direction) - the order the reference
 enqueues them (neighbour scan order up, left, down, right).  Values
 match the reference bit for bit: sqrt of an integer sum of squares
-times res.  One host sync per wave (the fixpoint test).
+times res.  One host sync per wave (the fixpoint test, the tracer's
+``host_reads.mapprep.field``).
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ import torch
 
 from lsdtpu_torch import geometry as geo
 from lsdtpu_torch import resolve_device
+from lsdtpu_torch.runtime import trace
 
 # parent offsets in the reference's neighbour scan order: the parent of
 # a cell claimed by an "up" move sits below it, and so on
@@ -92,7 +94,7 @@ def create_map_cache(map_gray, res: float, z_occ_max_dis: float = 1.0,
             n_cache = torch.where(better, _shift(d, dy, dx, torch.inf) * res,
                                   n_cache)
         new = key < KEY_BIG
-        if not bool(new.any()):
+        if not bool(trace.host_read("mapprep.field", new.any())):
             return cache
         # dense re-rank of this wave by enqueue order (keys of new cells
         # are unique, so the sort order is unambiguous)

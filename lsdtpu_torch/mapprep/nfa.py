@@ -94,7 +94,8 @@ def rectangles_nfa(recs, deg_map: torch.Tensor, log_nt: float,
         deg_map.device), row0, n_rows)
     stats.nfa_calls += 1
     stats.nfa_rects += len(recs)
-    counts = stats.to_host(axis.psum(torch.stack([all_pix, ali_pix])))
+    counts = stats.to_host("nfa",
+                           axis.psum(torch.stack([all_pix, ali_pix])))
     t = sc.dtype.type
     return [_binom_tail_nfa(t(a), t(b), r["p"], log_nt)
             for a, b, r in zip(counts[0], counts[1], recs)]

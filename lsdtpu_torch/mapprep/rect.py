@@ -101,7 +101,7 @@ def rectangle_converter(cur, seed_deg, mag, ali_pro: float, deg_thre: float,
     dyp = yf - cen_y
     wdx, wdy = w * dxp, w * dyp
     mom = _rsum(torch.stack([wdy * dyp, wdx * dxp, wdx * dyp]), axis) / ws
-    cen_x, cen_y, ixx, iyy, ixy, sdeg = stats.to_host(torch.cat([
+    cen_x, cen_y, ixx, iyy, ixy, sdeg = stats.to_host("rect", torch.cat([
         torch.stack([cen_x, cen_y]), mom, seed_deg.reshape(1).to(mag.dtype)]))
     t = type(ixx)
     ixy = -ixy
@@ -121,7 +121,7 @@ def rectangle_converter(cur, seed_deg, mag, ali_pro: float, deg_thre: float,
     # over a sharded field
     ext = torch.where(cur, torch.stack([lx, -lx, wx, -wx]),
                       torch.inf).amin((1, 2))
-    e = stats.to_host(axis.pmin(ext))
+    e = stats.to_host("rect", axis.pmin(ext))
     len_min, len_max, wid_min, wid_max = e[0], -e[1], e[2], -e[3]
     len_min, len_max = min(len_min, t(0)), max(len_max, t(0))
     wid_min, wid_max = min(wid_min, t(0)), max(wid_max, t(0))
@@ -175,7 +175,7 @@ def radius_reducer(seed_x: int, seed_y: int, seed_deg, cur, n: int, rec,
         rad = rad * t(0.75)
         cur = cur & (d_seed <= float(rad))
         k = cur.sum()
-        n = int(stats.to_host(axis.psum(k)))
+        n = int(stats.to_host("rect", axis.psum(k)))
         alive = n >= 2
         if alive:
             rec = rectangle_converter(cur, seed_deg, mag, rec["p"], deg_thre,
@@ -213,7 +213,7 @@ def radius_reducer_fifo(seed_x: int, seed_y: int, seed_deg, growth, n: int,
         ogrow.radius_reducer_fifo(seed_x, seed_y, rad, growth.qy, growth.qx,
                                   n_dev, cur, fit)
         stats.reducer_passes += 1
-        n = int(stats.to_host(n_dev)[0])
+        n = int(stats.to_host("rect", n_dev)[0])
         alive = n >= 2
         if alive:
             rec = rectangle_converter(fit, seed_deg, mag, rec["p"], deg_thre,

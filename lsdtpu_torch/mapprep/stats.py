@@ -1,6 +1,8 @@
 """Counters of one map-prep run: how often the host loop waited on the
 device and what it launched.  The caller creates one and passes it
-down; chip_smoke.py reports them per map."""
+down; chip_smoke.py reports them per map, OnlineLocalizer.set_map keeps
+the last map's, and map prep sets them on the tracer's ``mapprep.lsd``
+span."""
 
 from __future__ import annotations
 
@@ -8,6 +10,8 @@ import dataclasses
 
 import numpy as np
 import torch
+
+from lsdtpu_torch.runtime import trace
 
 
 @dataclasses.dataclass
@@ -22,7 +26,8 @@ class MapPrepStats:
     nfa_rects: int = 0   # rectangles counted over all calls
     syncs: int = 0       # device -> host reads the loop waited on
 
-    def to_host(self, t: torch.Tensor) -> np.ndarray:
-        """``t`` as a numpy array: one device -> host read, counted."""
+    def to_host(self, site: str, t: torch.Tensor) -> np.ndarray:
+        """``t`` as a numpy array: one device -> host read, counted here
+        and as the tracer's ``host_reads.mapprep.<site>``."""
         self.syncs += 1
-        return t.cpu().numpy()
+        return trace.host_read("mapprep." + site, t)

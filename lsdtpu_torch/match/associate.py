@@ -39,6 +39,7 @@ import torch.nn.functional as F
 from lsdtpu_torch import geometry as geo
 from lsdtpu_torch.ops.score import TOP_CODE, U8_MAX, U16_MAX, cells, \
     dequant, gather_cells, score_partials, score_partials_batched
+from lsdtpu_torch.runtime import trace
 from lsdtpu_torch.runtime.collectives import Axis
 
 
@@ -312,7 +313,8 @@ def score_candidates(cand: Candidates, pixels, pixels_mask, map_cache,
                          "window's host read: use runtime/loop.batched_cfg "
                          "(prune_min_live = 0, score_window = 0)")
     if pruning:
-        if not prune_min_live or int(cand.count) >= prune_min_live:
+        if not prune_min_live or int(trace.host_read(
+                "match.prune_gate", cand.count)) >= prune_min_live:
             return score_candidates_pruned(
                 cand, pixels, pixels_mask, map_cache, coarse,
                 rows=rows, cols=cols, z_occ_max_dis=z_occ_max_dis,
@@ -360,7 +362,8 @@ def window_origin(window: int, window_center, scan_radius,
         0, pad_rows - window)
     wx0 = (geo.c_round(window_center[0]).to(torch.int64) - half).clamp(
         0, pad_cols - window)
-    f, r0, c0 = torch.stack([fits.to(torch.int64), wy0, wx0]).tolist()
+    f, r0, c0 = trace.host_read(
+        "match.window", torch.stack([fits.to(torch.int64), wy0, wx0])).tolist()
     return bool(f), r0, c0
 
 

@@ -23,6 +23,7 @@ either way).
 
 from __future__ import annotations
 
+import itertools
 from typing import Optional, Sequence
 
 import numpy as np
@@ -31,9 +32,12 @@ import torch
 from lsdtpu_torch import resolve_device
 from lsdtpu_torch.config import DEFAULT, EngineConfig
 from lsdtpu_torch.match.associate import quantize_cache
+from lsdtpu_torch.runtime import trace
 from lsdtpu_torch.runtime.loop import (MapContext, batched_cfg, rollout,
                                        stack_frames, strategy, to_device,
                                        torch_dtype)
+
+_calls = itertools.count()      # run_batch calls: the tracer's requests
 
 
 def run_batch(frames, ctxs: MapContext, cfg: EngineConfig = DEFAULT,
@@ -50,14 +54,18 @@ def run_batch(frames, ctxs: MapContext, cfg: EngineConfig = DEFAULT,
         raise ValueError(f"ctxs live on {ctxs.cache.device}, not {dev}")
     if ctxs.cache.dim() != 3:
         raise ValueError("ctxs must be a batched MapContext (stack_batch)")
-    fr = {k: v.transpose(0, 1).contiguous()
-          for k, v in to_device(frames, dev).items()}
-    B = ctxs.cache.shape[0]
-    if fr["ranges"].shape[1] != B:
-        raise ValueError(f"frames have {fr['ranges'].shape[1]} lanes, "
-                         f"ctxs {B}")
-    outs = rollout(fr, ctxs, batched_cfg(cfg), lanes=B, **strategy(cfg))
-    return {k: v.transpose(0, 1) for k, v in outs.items()}
+    call = next(_calls)
+    with trace.span("batch.run", call):
+        with trace.span("batch.upload"):
+            fr = {k: v.transpose(0, 1).contiguous()
+                  for k, v in to_device(frames, dev).items()}
+        B = ctxs.cache.shape[0]
+        if fr["ranges"].shape[1] != B:
+            raise ValueError(f"frames have {fr['ranges'].shape[1]} lanes, "
+                             f"ctxs {B}")
+        outs = rollout(fr, ctxs, batched_cfg(cfg), lanes=B, call=call,
+                       **strategy(cfg))
+        return {k: v.transpose(0, 1) for k, v in outs.items()}
 
 
 def batch_context(map_arts: Sequence, params: Sequence,

@@ -36,8 +36,10 @@ from lsdtpu_torch import resolve_device
 from lsdtpu_torch.config import DEFAULT, EngineConfig
 from lsdtpu_torch.eval.ate import pixel_to_world
 from lsdtpu_torch.mapprep.pipeline import prepare_map
+from lsdtpu_torch.mapprep.stats import MapPrepStats
 from lsdtpu_torch.match import legacy as mlegacy
 from lsdtpu_torch.oracle import driver as odrv
+from lsdtpu_torch.runtime import trace
 from lsdtpu_torch.runtime.checkpoint import load_session, save_state
 from lsdtpu_torch.runtime.loop import (MapContext, TrackState,
                                        featurize_stage, init_state,
@@ -103,12 +105,13 @@ def _legacy_step(ranges, angles, valid, n, ctx: MapContext,
                                   fs.overflow}
 
 
-def to_host(out: dict) -> dict:
+def to_host(out: dict, site: str = "online.readback") -> dict:
     """The outputs as numpy arrays of their own dtypes and shapes, read
     from the device in one transfer (every value, counts and flags
-    included, is exact in float64)."""
+    included, is exact in float64), counted as the tracer's
+    ``host_reads.<site>``."""
     flat = torch.cat([v.reshape(-1).to(torch.float64) for v in out.values()])
-    host = flat.cpu().numpy()
+    host = trace.host_read(site, flat)
     res, i = {}, 0
     for k, v in out.items():
         n = v.numel()
@@ -144,6 +147,9 @@ class OnlineLocalizer:
         self._coarse = None
         self._world = None
         self._prev_odom: Optional[np.ndarray] = None
+        # the last set_map's map-prep counters (None for the oracle's)
+        self.last_mapprep_stats: Optional[MapPrepStats] = None
+        self._maps = self._pushes = 0     # the tracer's requests
 
     @property
     def is_map_ready(self) -> bool:
@@ -157,15 +163,21 @@ class OnlineLocalizer:
         host (mapprep="oracle").  Returns #lines."""
         z = LEGACY_Z_OCC_MAX_DIS if self.mode == "legacy" else \
             self.cfg.map.z_occ_max_dis
-        if self.mapprep == "oracle":
-            art = odrv.prepare_map(np.asarray(map_value), resol,
-                                   z_occ_max_dis=z)
-        else:
-            art = prepare_map(map_value, resol, z_occ_max_dis=z,
-                              device=self.device)
-        self.set_map_artifacts(art.lines_info, art.map_cache, resol, ori_x,
-                               ori_y)
-        return int(art.lines_info.shape[0])
+        self._maps += 1
+        with trace.span("online.set_map", ("map", self._maps)):
+            if self.mapprep == "oracle":
+                self.last_mapprep_stats = None
+                art = odrv.prepare_map(np.asarray(map_value), resol,
+                                       z_occ_max_dis=z)
+            else:
+                self.last_mapprep_stats = MapPrepStats()
+                art = prepare_map(map_value, resol, z_occ_max_dis=z,
+                                  device=self.device,
+                                  stats=self.last_mapprep_stats)
+            with trace.span("mapprep.context"):
+                self.set_map_artifacts(art.lines_info, art.map_cache, resol,
+                                       ori_x, ori_y)
+            return int(art.lines_info.shape[0])
 
     def set_map_occupancy_grid(self, data, width: int, height: int,
                                resol: float, ori_x: float,
@@ -237,29 +249,38 @@ class OnlineLocalizer:
         odom = np.zeros(3, self.dtype) if odom is None else \
             np.asarray(odom, self.dtype)
         prev = self._prev_odom if self._prev_odom is not None else odom
-        # one host -> device copy: ranges, angles (zero-padded to N) and
-        # the two odometry readings
-        buf = np.zeros(2 * N + 6, self.dtype)
-        buf[:n] = ranges
-        buf[N:N + n] = angles[:n]
-        buf[2 * N:2 * N + 3] = prev
-        buf[2 * N + 3:] = odom
-        t = torch.from_numpy(buf).to(self.device)
-        r, a = t[:N], t[N:2 * N]
-        v = torch.arange(N, device=self.device) < n
-        n_t = torch.full((), n, dtype=torch.int32, device=self.device)
+        self._pushes += 1
+        with trace.span("online.push", ("push", self._pushes)):
+            with trace.span("online.pack"):
+                # one host -> device copy: ranges, angles (zero-padded to
+                # N) and the two odometry readings
+                buf = np.zeros(2 * N + 6, self.dtype)
+                buf[:n] = ranges
+                buf[N:N + n] = angles[:n]
+                buf[2 * N:2 * N + 3] = prev
+                buf[2 * N + 3:] = odom
+                t = torch.from_numpy(buf).to(self.device)
+                r, a = t[:N], t[N:2 * N]
+                v = torch.arange(N, device=self.device) < n
+                n_t = torch.full((), n, dtype=torch.int32,
+                                 device=self.device)
 
-        if self.mode == "legacy":
-            return to_host(_legacy_step(r, a, v, n_t, self.ctx, self.cfg))
+            if self.mode == "legacy":
+                out = _legacy_step(r, a, v, n_t, self.ctx, self.cfg)
+                with trace.span("online.readback"):
+                    return to_host(out)
 
-        self.state, out = localization_step(
-            self.state, (r, a, v, n_t, t[2 * N:2 * N + 3], t[2 * N + 3:]),
-            self.ctx, self.cfg, coarse=self._coarse)
-        self._prev_odom = odom
-        res = to_host(out)
-        xy = pixel_to_world(res["pose"][None], *self._world)
-        res["pose_world"] = np.array([xy[0, 0], xy[0, 1], res["pose"][2]])
-        return res
+            self.state, out = localization_step(
+                self.state, (r, a, v, n_t, t[2 * N:2 * N + 3],
+                             t[2 * N + 3:]),
+                self.ctx, self.cfg, coarse=self._coarse)
+            self._prev_odom = odom
+            with trace.span("online.readback"):
+                res = to_host(out)
+                xy = pixel_to_world(res["pose"][None], *self._world)
+                res["pose_world"] = np.array([xy[0, 0], xy[0, 1],
+                                              res["pose"][2]])
+            return res
 
     # -- checkpoint / resume (runtime/checkpoint.py) ---------------------
     def save(self, path: str) -> None:

@@ -34,12 +34,13 @@ from lsdtpu_torch import geometry as geo
 from lsdtpu_torch import resolve_device
 from lsdtpu_torch.config import DEFAULT, EngineConfig
 from lsdtpu_torch.match.associate import coarse_field, quantize_cache
+from lsdtpu_torch.runtime import trace
 from lsdtpu_torch.runtime.collectives import Axis, gather_lanes, rank_slice
 from lsdtpu_torch.runtime.distributed import DP_AXIS
 from lsdtpu_torch.runtime.loop import (MapContext, TrackState, batched_cfg,
                                        init_state, localization_step,
                                        numpy_dtype, torch_dtype)
-from lsdtpu_torch.runtime.online import to_host
+from lsdtpu_torch.runtime.online import to_host as _to_host
 
 
 def make_pool_mesh(n_devices: Optional[int] = None, device="cuda"):
@@ -55,6 +56,12 @@ def _put(dst, slot: int, val) -> None:
     if dst.dtype == torch.uint16:
         dst, val = dst.view(torch.int16), val.view(torch.int16)
     dst[slot] = val
+
+
+def to_host(out: dict) -> dict:
+    """The pool's outputs on the host in one read (online.to_host),
+    counted as the tracer's ``host_reads.pool.readback``."""
+    return _to_host(out, "pool.readback")
 
 
 def _pool_step(states: TrackState, inputs, ctxs: MapContext, active,
@@ -126,6 +133,7 @@ class SessionPool:
         self._sessions: Dict[str, int] = {}
         self._prev_odom: Dict[str, np.ndarray] = {}
         self._pending: Dict[int, tuple] = {}
+        self._ticks = 0           # steps taken: the tracer's requests
 
     # -- session lifecycle ------------------------------------------------
     def open_session(self, sid: str, lines_info, map_cache, resol,
@@ -215,34 +223,45 @@ class SessionPool:
         a scan."""
         if not self._pending:
             return {}
+        self._ticks += 1
+        with trace.span("pool.step", self._ticks) as sp:
+            inputs, active = self._pack()
+            self._states, outs = _pool_step(self._states, inputs,
+                                            self._ctxs, active, self.cfg,
+                                            self._coarse)
+            with trace.span("pool.readback"):
+                host = to_host(gather_lanes(self._axis, outs))
+            results = {sid: {k: v[slot] for k, v in host.items()}
+                       for sid, slot in self._sessions.items()
+                       if slot in self._pending}
+            sp.set(slots_stepped=self.capacity, scans_carried=len(results))
+            self._pending.clear()
+            return results
+
+    def _pack(self):
+        """This rank's submitted scans in one host buffer, copied to the
+        device once: the step's inputs and the active flags."""
         N = self.cfg.shapes.points_per_scan
         lo, hi = self._mine.start, self._mine.stop
         B = hi - lo
-        # per slot of this rank: ranges, angles (zero-padded to N),
-        # odom_prev, odom_cur, the point count and the active flag (both
-        # exact)
-        buf = np.zeros((B, 2 * N + 8), self.dtype)
-        for slot, (r, a, n, p, c) in self._pending.items():
-            if not lo <= slot < hi:
-                continue
-            slot -= lo
-            buf[slot, :n] = r
-            buf[slot, N:N + n] = a
-            buf[slot, 2 * N:2 * N + 3] = p
-            buf[slot, 2 * N + 3:2 * N + 6] = c
-            buf[slot, 2 * N + 6] = n
-            buf[slot, 2 * N + 7] = 1
-        t = torch.from_numpy(buf).to(self.device)
-        n = t[:, 2 * N + 6].to(torch.int32)
-        valid = torch.arange(N, device=self.device) < n[:, None]
-        inputs = (t[:, :N], t[:, N:2 * N], valid, n, t[:, 2 * N:2 * N + 3],
-                  t[:, 2 * N + 3:2 * N + 6])
-        self._states, outs = _pool_step(self._states, inputs, self._ctxs,
-                                        t[:, 2 * N + 7] > 0, self.cfg,
-                                        self._coarse)
-        host = to_host(gather_lanes(self._axis, outs))
-        results = {sid: {k: v[slot] for k, v in host.items()}
-                   for sid, slot in self._sessions.items()
-                   if slot in self._pending}
-        self._pending.clear()
-        return results
+        with trace.span("pool.pack"):
+            # per slot of this rank: ranges, angles (zero-padded to N),
+            # odom_prev, odom_cur, the point count and the active flag
+            # (both exact)
+            buf = np.zeros((B, 2 * N + 8), self.dtype)
+            for slot, (r, a, n, p, c) in self._pending.items():
+                if not lo <= slot < hi:
+                    continue
+                slot -= lo
+                buf[slot, :n] = r
+                buf[slot, N:N + n] = a
+                buf[slot, 2 * N:2 * N + 3] = p
+                buf[slot, 2 * N + 3:2 * N + 6] = c
+                buf[slot, 2 * N + 6] = n
+                buf[slot, 2 * N + 7] = 1
+            t = torch.from_numpy(buf).to(self.device)
+            n = t[:, 2 * N + 6].to(torch.int32)
+            valid = torch.arange(N, device=self.device) < n[:, None]
+            inputs = (t[:, :N], t[:, N:2 * N], valid, n,
+                      t[:, 2 * N:2 * N + 3], t[:, 2 * N + 3:2 * N + 6])
+            return inputs, t[:, 2 * N + 7] > 0

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from lsdtpu_torch import geometry as geo
+from lsdtpu_torch.runtime import trace
 
 # range-dependent gap thresholds (reference: getThresholdDeltaDist,
 # LSD/myRDP.cpp:347-368)
@@ -143,7 +144,7 @@ def _rdp_rounds(gwx, gwy, ranges_r, marker, interior_ok, thre_line: float,
     adds no marker in a later round (a new marker needs a segment over
     its threshold, and its segments no longer change), so its result is
     the one it gets alone.  Counts the rounds it runs (host reads) in
-    ``_rdp_rounds.rounds``."""
+    ``_rdp_rounds.rounds``, the tracer's ``host_reads.featurize.rdp``."""
     N = gwx.shape[-1]
     idx = torch.arange(N, device=gwx.device)
     thre = torch.where(ranges_r > 9.0, ranges_r * thre_line, thre_line)
@@ -176,6 +177,8 @@ def _rdp_rounds(gwx, gwy, ranges_r, marker, interior_ok, thre_line: float,
 
 
 _rdp_rounds.rounds = 0
+trace.register_counter("host_reads.featurize.rdp",
+                       lambda: _rdp_rounds.rounds)
 
 
 def _segment_pixels(x1, y1, x2, y2, x_lim, y_lim, t):
