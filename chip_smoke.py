@@ -38,8 +38,9 @@ its own line; any failure exits non-zero before the last line:
      the device idle share of PROFILE_FRAMES frames under prefeaturize;
   6. map prep: f64 on the card vs the CPU (the same lines within 1e-6
      px, the distance field bit-exact, one NFA kernel launch per count
-     call), f32 on the card timed to value (median of 2) with the seed
-     walk's counters and the device idle share, then the NFA kernel
+     call, one grow_wave launch per growth call), f32 on the card timed
+     to value (median of 2) with the seed walk's counters (wave_calls
+     among them) and the device idle share, then the NFA kernel
      against its plain version on every launch the two runs made, on
      degenerate rectangles, and timed (with the bitwise repeat check) on
      three recorded batches;
@@ -56,7 +57,14 @@ its own line; any failure exits non-zero before the last line:
   9. FIFO growth, on the same scene with round pillars (their arcs send
      regions through the radius reducer): the latency probe (SM cycles of
      a dependent on-chip load and of an atan2, for the queue kernels'
-     chain bound); f64 FIFO map prep on the card
+     chain bound); then grow_wave on phase 6's f32 wave map: a sample of
+     its launches (every 25th and the 20 largest) replayed through the
+     plain version in f32 on the CPU (same region and counts, reg_deg
+     within 1e-5, none differing), its largest
+     region relaunched (50 repeats bitwise, device time, plain time, the
+     bound of its chain of waves; the same region's inputs in f64 against
+     the plain version) and its launches, mean and summed device ms and
+     summed bounds over that map prep; f64 FIFO map prep on the card
      (every grow_fifo and radius_reducer_fifo launch recorded) vs the CPU,
      the same lines within 1e-9 px and the same seed walk (else the first
      growth call where the two part ways); every recorded launch replayed through
@@ -803,12 +811,15 @@ def record_fifo(run):
         reduces.append(rec)
 
     ns = types.SimpleNamespace(fifo_queue=og.fifo_queue, grow_fifo=grow,
-                               radius_reducer_fifo=reduce)
+                               radius_reducer_fifo=reduce,
+                               grow_wave=og.grow_wave,
+                               grow_wave_reference=og.grow_wave_reference)
+    saved = mlsd.ogrow, mrect.ogrow
     mlsd.ogrow, mrect.ogrow = ns, ns
     try:
         return run(), grows, reduces
     finally:
-        mlsd.ogrow, mrect.ogrow = og, og
+        mlsd.ogrow, mrect.ogrow = saved
 
 
 def replay_grow(c, cpu_maps):
@@ -1016,6 +1027,198 @@ def fifo_kernel_cases(grows, reduces, card, floor_ms, lat, clock):
         out.append(r_out)
     return out
 
+
+
+# the f32 wave map's grow_wave calls held against the plain version on the
+# CPU: every WAVE_REPLAY_EVERY-th and the WAVE_REPLAY_LARGEST of the most
+# pixels
+WAVE_REPLAY_EVERY = 25
+WAVE_REPLAY_LARGEST = 20
+
+
+def record_wave(run):
+    """Run ``run()`` with every grow_wave call of map prep counted:
+    returns (result, each call's counts [n, waves, tests], a sample of the
+    calls by index - every WAVE_REPLAY_EVERY-th and the
+    WAVE_REPLAY_LARGEST of the most pixels - with their inputs and outputs
+    cloned)."""
+    import heapq
+    import types
+    import torch
+    from lsdtpu_torch.mapprep import lsd as mlsd
+    og = mlsd.ogrow
+    counts, kept, top = [], {}, []
+
+    def grow_wave(sy, sx, a0, thre, free, deg, sn, cs, queue=None):
+        out = og.grow_wave(sy, sx, a0, thre, free, deg, sn, cs, queue)
+        c = out.counts.tolist()
+        i = len(counts)
+        counts.append(c)
+        big = len(top) < WAVE_REPLAY_LARGEST or c[0] > top[0][0]
+        if big or i % WAVE_REPLAY_EVERY == 0:
+            kept[i] = dict(
+                sy=sy, sx=sx, a0=a0.clone(), free=free.clone(),
+                thre=thre.clone() if torch.is_tensor(thre) else thre,
+                deg=deg, sn=sn, cs=cs, cur=out.cur.clone(),
+                reg_deg=out.reg_deg.clone(), counts=c)
+        if big:
+            heapq.heappush(top, (c[0], i))
+            if len(top) > WAVE_REPLAY_LARGEST:
+                _n, j = heapq.heappop(top)
+                if j % WAVE_REPLAY_EVERY:
+                    del kept[j]
+        return out
+
+    mlsd.ogrow = types.SimpleNamespace(
+        fifo_queue=og.fifo_queue, grow_fifo=og.grow_fifo,
+        radius_reducer_fifo=og.radius_reducer_fifo, grow_wave=grow_wave,
+        grow_wave_reference=og.grow_wave_reference)
+    try:
+        return run(), counts, kept
+    finally:
+        mlsd.ogrow = og
+
+
+def replay_wave(c, cpu_maps):
+    """One recorded grow_wave launch through the plain version on the CPU,
+    in the launch's own dtype; returns (same region and counts, reg_deg
+    difference)."""
+    import torch
+    from lsdtpu_torch.ops import grow as og
+    deg, sn, cs = cpu_maps
+    thre = c["thre"].cpu() if torch.is_tensor(c["thre"]) else c["thre"]
+    want = og.grow_wave_reference(c["sy"], c["sx"], c["a0"].cpu(), thre,
+                                  c["free"].cpu(), deg, sn, cs)
+    same = (c["counts"] == want.counts.tolist()
+            and torch.equal(c["cur"].cpu(), want.cur))
+    return same, abs(float(c["reg_deg"]) - float(want.reg_deg))
+
+
+# operations of grow_wave per candidate test (the angle test and the
+# entry's move) and per accepted cell (its share of the sort, the sums,
+# eight neighbour claims)
+OPS_PER_WAVE_TEST = 8
+OPS_PER_WAVE_ACCEPT = 40
+
+
+def wave_bound(counts, cells, dt, lat, sm_clock_hz):
+    """The bound of one grow_wave launch from its counts [n, waves,
+    tests].  The waves are a dependent chain - a wave's test needs the
+    last wave's angle, its candidates the last wave's acceptances - so
+    the least time is the start angle's atan2 and, per wave, one
+    acceptance step (an add, an atan2 and the test: ``accept_<dt>``) and
+    two dependent loads (the candidates' angles, the neighbours' free
+    flags), at the latencies ``lat`` measured on this card and the
+    maximum SM clock.  Beside it, bytes (each test's angle, each accepted
+    cell's sin, cos and eight free flags, the mask written once) and
+    operations; the bound is the largest of the three."""
+    n, waves, tests = counts
+    esize = 8 if dt == "float64" else 4
+    nbytes = tests * esize + n * (2 * esize + 8) + cells + 12 + esize
+    ops = OPS_PER_WAVE_TEST * tests + OPS_PER_WAVE_ACCEPT * n
+    chain = (lat[f"atan2_{dt}"] + waves * (lat[f"accept_{dt}"]
+                                           + 2 * lat["l1_load"])) \
+        / sm_clock_hz * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS[dt] * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops, chain),
+                bound_by="dependent chain" if chain >= max(t_bytes, t_ops)
+                else "bytes" if t_bytes >= t_ops else "operations",
+                chain_bound_ms=chain, bytes_bound_ms=t_bytes,
+                ops_bound_ms=t_ops, pixels=n, waves=waves, tests=tests)
+
+
+def wave_kernel_cases(kept, counts, acts, card, floor_ms, lat, clock):
+    """grow_wave on the f32 wave map: the sampled calls ``kept`` (record_wave)
+    through the plain version on the CPU in f32 - the same region and
+    counts, reg_deg within 1e-5 (CUDA's atan2 and the kernel's sums in
+    row-major order against torch's), no call allowed to differ; the
+    region of the most pixels relaunched (50 launches, bitwise equal to
+    the recorded one) with its device time, bound and plain version's
+    time; then over the map's recorded calls and the profile of the same
+    map prep, the launches, mean and summed device ms and the summed
+    per-launch bounds (the profiler can drop a few of a long profile's
+    device events: the sum is the profiled mean times the recorded
+    calls)."""
+    import torch
+    from lsdtpu_torch.ops import grow as og
+    big = kept[max(kept, key=lambda i: (kept[i]["counts"][0], -i))]
+    cpu_maps = tuple(t.cpu() for t in (big["deg"], big["sn"], big["cs"]))
+    differing, rd_max = [], 0.0
+    for i, c in sorted(kept.items()):
+        same, rd = replay_wave(c, cpu_maps)
+        rd_max = max(rd_max, rd)
+        if not same or rd > 1e-5:
+            differing.append(i)
+    phase("grow_kernel_check", map="f32", kernel="grow_wave",
+          dtype=str(big["deg"].dtype).split(".")[1], sampled=len(kept),
+          of=len(counts), grow_differing=len(differing),
+          first_differing=(None if not differing else
+                           (differing[0], kept[differing[0]]["sy"],
+                            kept[differing[0]]["sx"])),
+          sampled_waves=sum(c["counts"][1] for c in kept.values()),
+          reg_deg_max_diff=rd_max)
+    if differing:
+        fail(f"grow_wave: {len(differing)} of {len(kept)} sampled f32 wave "
+             "map launches differ from the plain version")
+    H, W = big["deg"].shape
+    dt = str(big["deg"].dtype).split(".")[1]
+    queue = og.fifo_queue(H, W, big["deg"].device)
+    args = (big["sy"], big["sx"], big["a0"], big["thre"], big["free"],
+            big["deg"], big["sn"], big["cs"], queue)
+
+    def launch():
+        g = og.grow_wave(*args)
+        return g.cur.clone(), g.reg_deg, g.counts
+
+    first = tuple(t.clone() for t in launch())
+    if not (torch.equal(first[0], big["cur"])
+            and torch.equal(first[1], big["reg_deg"])
+            and first[2].tolist() == big["counts"]):
+        fail("grow_wave: a relaunch on the largest region differs from the "
+             "recorded launch")
+    ms, src = profiled_ms("grow_wave", launch, first,
+                          "grow_wave_kernel"), "profiler"
+    if ms is None:
+        ms, src = time_cuda(launch, 50), "cuda events"
+    cpu = [t.cpu() if torch.is_tensor(t) else t for t in args[:8]]
+    # the same region's inputs in f64, the kernel against the plain version
+    # (f64 decisions agree; f32 ones may not at an ulp from the threshold)
+    a64 = [t.double() if torch.is_tensor(t) and t.is_floating_point() else t
+           for t in args[:8]]
+    g64 = og.grow_wave(*a64, queue)
+    want = og.grow_wave_reference(*[t.cpu() if torch.is_tensor(t) else t
+                                    for t in a64])
+    rd = abs(float(g64.reg_deg) - float(want.reg_deg))
+    if not (g64.counts.tolist() == want.counts.tolist()
+            and torch.equal(g64.cur.cpu(), want.cur) and rd <= 1e-12):
+        fail(f"grow_wave: the largest f32 region's inputs in f64 give "
+             f"{g64.counts.tolist()} on the card, {want.counts.tolist()} "
+             f"in the plain version (reg_deg {rd} apart)")
+    out = dict(name="wave_largest", seed=(big["sy"], big["sx"]), dtype=dt,
+               **wave_bound(big["counts"], H * W, dt, lat, clock),
+               repeats_bitwise=50, ms=ms, ms_source=src,
+               plain_ms=plain_ms(lambda: og.grow_wave_reference(*cpu)),
+               floor_ms=floor_ms, f64_same_as_plain=True,
+               reg_deg_diff_f64=rd)
+    phase("grow_kernel_check", **out, bound_us=out["bound_ms"] * 1e3,
+          card=card)
+    hits = [v for k, v in acts.items() if "grow_wave_kernel" in k]
+    launches = sum(h[0] for h in hits)
+    if not 0 < launches <= len(counts):
+        fail(f"grow_wave: {launches} profiled launches for {len(counts)} "
+             "recorded calls of the same map prep")
+    mean_ms = sum(h[1] for h in hits) / 1e3 / launches
+    bound_sum = sum(wave_bound(c, H * W, dt, lat, clock)["bound_ms"]
+                    for c in counts)
+    summary = dict(launches=launches, recorded=len(counts),
+                   profiler_dropped=len(counts) - launches, mean_ms=mean_ms,
+                   device_ms=mean_ms * len(counts), bound_sum_ms=bound_sum,
+                   over_bound_ms=mean_ms * len(counts) - bound_sum,
+                   waves=sum(c[1] for c in counts))
+    phase("grow_kernel_check", map="f32", kernel="grow_wave", **summary,
+          card=card)
+    return [out, summary]
 
 
 def maze_field(H, W, box, seed, dtype):
@@ -2068,7 +2271,8 @@ def _wrappers():
     return {"score_partials": score.score_partials,
             "score_partials_batched": score.score_partials_batched,
             "rect_counts": nfa.rect_counts, "grow_fifo": grow.grow_fifo,
-            "radius_reducer_fifo": grow.radius_reducer_fifo}
+            "radius_reducer_fifo": grow.radius_reducer_fifo,
+            "grow_wave": grow.grow_wave}
 
 
 def write_dataset(root, scene):
@@ -4009,10 +4213,11 @@ def main():
     cpu = torch.device("cpu")
 
     # f64 on the card vs the CPU: the same lines, one launch per count
+    from lsdtpu_torch.ops import grow as og
     prep = {}
     for dev in (device, cpu):
         st = MapPrepStats()
-        onfa.rect_counts.launches = 0
+        onfa.rect_counts.launches = og.grow_wave.launches = 0
         t0 = time.perf_counter()
         art, calls = record_rect_counts(lambda: prepare_map(
             grid, resol, dtype=torch.float64, device=dev, stats=st))
@@ -4020,9 +4225,13 @@ def main():
         prep[dev.type] = (art, st, onfa.rect_counts.launches, calls, got)
         phase("mapprep_f64", device=dev.type, card=repr(smi),
               seconds=round(time.perf_counter() - t0, 2), lines=len(got),
-              seeds=st.seeds, waves=st.waves, nfa_calls=st.nfa_calls,
-              nfa_rects=st.nfa_rects, syncs=st.syncs,
-              nfa_launches=onfa.rect_counts.launches)
+              seeds=st.seeds, waves=st.waves, wave_calls=st.wave_calls,
+              nfa_calls=st.nfa_calls, nfa_rects=st.nfa_rects, syncs=st.syncs,
+              nfa_launches=onfa.rect_counts.launches,
+              wave_launches=og.grow_wave.launches)
+        if dev.type == "cuda" and og.grow_wave.launches != st.wave_calls:
+            fail(f"f64 map prep: {og.grow_wave.launches} grow_wave launches "
+                 f"for {st.wave_calls} growth calls")
     (a_gpu, st_gpu, launch_gpu, calls64, l_gpu), (a_cpu, st_cpu, _l, _c,
                                                   l_cpu) = \
         prep["cuda"], prep["cpu"]
@@ -4060,9 +4269,10 @@ def main():
                           stats=stats)
         return art.lines_info.cpu().numpy()
 
-    _l32, calls32 = record_rect_counts(lambda: prep32(MapPrepStats()))
+    (_l32, calls32), wave32, wave_kept = record_wave(
+        lambda: record_rect_counts(lambda: prep32(MapPrepStats())))
     times, sts = [], []
-    onfa.rect_counts.launches = 0
+    onfa.rect_counts.launches = og.grow_wave.launches = 0
     for _ in range(MAPPREP_REPEATS):
         sts.append(MapPrepStats())
         torch.cuda.synchronize()
@@ -4073,7 +4283,12 @@ def main():
     if launches32 != sum(x.nfa_calls for x in sts) or launches32 == 0:
         fail(f"f32 map prep: {launches32} NFA launches for "
              f"{[x.nfa_calls for x in sts]} count calls")
+    if og.grow_wave.launches != sum(x.wave_calls for x in sts) \
+            or og.grow_wave.launches == 0:
+        fail(f"f32 map prep: {og.grow_wave.launches} grow_wave launches for "
+             f"{[x.wave_calls for x in sts]} growth calls")
     wall, acts = device_profile(lambda: prep32(MapPrepStats()))
+    acts_wave32 = acts
     busy = sum(v[1] for v in acts.values()) / 1e3
     nfa_dev = kernel_device_ms(acts, "rect_counts_kernel")
     st = sts[-1]
@@ -4082,7 +4297,10 @@ def main():
           median_ms=float(np.median(times)), min_ms=min(times),
           max_ms=max(times), lines=len(l32), lines_f64=len(l_gpu),
           matched_25px=m25, matched_2px=m2, seeds=st.seeds, waves=st.waves,
+          wave_calls=st.wave_calls,
           nfa_launches=st.nfa_calls, nfa_rects=st.nfa_rects, syncs=st.syncs,
+          wave_kernel_mean_device_ms=kernel_device_ms(acts,
+                                                       "grow_wave_kernel"),
           profiled_wall_ms=wall, device_busy_ms=busy,
           device_idle_share=1.0 - busy / wall,
           device_ops=sum(v[0] for v in acts.values()),
@@ -4181,13 +4399,16 @@ def main():
     # --- 9. FIFO growth (slice 4) -----------------------------------------
     # the same scene with round pillars: their arcs grow sparse regions,
     # which the refiner sends through the radius reducer
-    from lsdtpu_torch.ops import grow as og
     t_fifo = time.perf_counter()
     clock = sm_clock_hz()
     lat = og.latency_probe(device)
     phase("latency_probe", card=repr(smi), sm_clock_mhz=clock / 1e6,
           units="'SM cycles per dependent step'",
           **{k: round(v, 2) for k, v in lat.items()})
+    # the wave kernel on phase 6's f32 wave map, at these latencies
+    wave_runs = wave_kernel_cases(wave_kept, wave32, acts_wave32, repr(smi),
+                                  floor_ms, lat, clock)
+    del wave_kept
     scene_p = make_scene(PILLARS)
     ds_p = scene_p.dataset
     grid_p = ds_p.map_value
@@ -4587,6 +4808,34 @@ def main():
             {path: counts[k["name"]] for path, counts in fuzz_paths.items()})
         k["launches_by_path"].update(
             {path: counts[k["name"]] for path, counts in tool_paths.items()})
+    wave_case, wave_map = wave_runs
+    kernels.append({
+        "name": "grow_wave", "route": "cuda",
+        "source": "lsdtpu_torch/csrc/grow.cu",
+        "replaces": "lsdtpu/mapprep/lsd.py:73",
+        "replaces_note": "an XLA while_loop of the reference package; no "
+                         "Pallas kernel",
+        "checked": True, "launches": wave_map["recorded"],
+        "launches_by_path": dict(
+            {"mapprep_f32": wave_map["recorded"]},
+            **{path: counts.get("grow_wave", 0) for path, counts in
+               {**cli_paths, **multi_paths, **tool_paths}.items()}),
+        "max_abs_err": wave_case["reg_deg_diff_f64"],
+        "ms": wave_case["ms"], "ms_source": wave_case["ms_source"],
+        "plain_ms": wave_case["plain_ms"], "bound_ms": wave_case["bound_ms"],
+        "bound_by": wave_case["bound_by"],
+        "chain_bound_ms": wave_case["chain_bound_ms"],
+        "bytes_bound_ms": wave_case["bytes_bound_ms"],
+        "ops_bound_ms": wave_case["ops_bound_ms"], "latency_cycles": lat,
+        "library_ms": None, "floor_ms": floor_ms, "map_f32": wave_map,
+        "design": "one block; the region and the seen cells two shared "
+                  "bitmaps (the global mask past the budget), the "
+                  "candidate list and a wave's accepted cells packed in "
+                  "shared memory (spilling to the queue buffers); a wave "
+                  "tests the list in chunks of 256, the accepted cells "
+                  "sorted and summed in a fixed tree, their free "
+                  "neighbours claimed by atomicOr and appended",
+        "cases": [wave_case]})
     import torch.distributed as dist
     if dist.is_initialized():
         dist.destroy_process_group()    # the one-rank group of multi_world1

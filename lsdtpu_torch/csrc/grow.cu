@@ -1,8 +1,8 @@
-// Exact FIFO region growth and the FIFO radius reducer of the LSD map
-// prep, for Hopper (sm_90a).
+// Region growth of the LSD map prep - exact FIFO growth, the FIFO radius
+// reducer and wave-synchronous growth - for Hopper (sm_90a).
 //
 // No TPU kernel stands behind these: the reference package runs them as
-// XLA while_loops (lsdtpu/mapprep/lsd.py:_grow_fifo,
+// XLA while_loops (lsdtpu/mapprep/lsd.py:_grow_fifo, :_grow,
 // lsdtpu/mapprep/rect.py:radius_reducer_fifo).  Reference semantics:
 // RegionGrower and RegionRadiusReducer, LSD/myLSD.cpp:491-590 and
 // 736-802.
@@ -100,10 +100,57 @@
 // as they would one by one), and the phantom-slot rule follows; the
 // block writes the entries back.
 //
+// grow_wave: the counterpart of the JAX package's _grow while_loop
+// (lsdtpu/mapprep/lsd.py:73), one launch a growth call where the port's
+// plain loop (ops/grow.py:grow_wave_reference) reads the device once a
+// wave.  Its waves: the angle d = atan2(sin, cos) of the running sums is
+// fixed for a wave; every candidate - a free 8-neighbour of the region not
+// in it - passes when |d - deg| (folded by 2 pi above 1.5 pi) < thre; the
+// passing ones join the region and their sin/cos sums are added to the
+// running sums; the loop ends at the first wave that accepts nothing
+// (counted, as the plain loop counts it).  The start angle comes from a
+// device scalar (sin and cos taken here), so the refiner's regrowth needs
+// no read either.  Outputs: the mask, the angle, and [pixels, waves,
+// candidate tests].
+//
+// Bound of grow_wave: the waves are a dependent chain - a wave's test
+// needs the previous wave's angle, its candidates the previous wave's
+// acceptances - and a wave's work is small (the region's rim, tens of
+// cells on a map), so neither bytes nor operations bound it but the steps
+// a wave takes one after another: the candidates' angle loads, the test,
+// the sum of the accepted cells, the atan2, the neighbours' free loads,
+// and the block barriers between them.
+//
+// Design of grow_wave: one 256-thread block holds the region and the
+// candidates on the chip, so a wave costs a few barriers, not a pass over
+// the field.
+//  * Two bitmaps in shared memory (16 KB each for a 293 x 432 field): the
+//    region and the seen cells (region or listed).  A field whose bitmaps
+//    do not fit beside QUEUE_MIN entries of each list (ops/grow.py:
+//    wave_plan) keeps a byte a cell in the uint8 output instead (0, 1
+//    region, 2 listed), changed by word atomics (kSharedMask false).
+//  * The candidate list and the wave's accepted cells are shared arrays
+//    of packed cells, spilling past their caps to the per-map queue
+//    buffers (list_spill, acc_spill).  A wave tests the list in chunks of
+//    256, one entry a thread; a warp's passes move to the accepted array
+//    and its fails are packed in place at the front of the list, each with
+//    one shared atomic a warp (the chunk is read before any entry moves).
+//    The accepted cells' free neighbours are claimed on the seen bitmap
+//    (an atomicOr: one thread lists a cell) and appended to the list.
+//  * The sums are taken in one order fixed by the accepted cells'
+//    row-major index, never by thread timing: the accepted cells are sorted
+//    (one warp's shuffles for at most 32, the common case, else a bitonic
+//    network over the block) and summed by a fixed tree (wave_sums), so a
+//    launch repeats bit for bit.  Only the lists' order depends on timing,
+//    and no result depends on it.
+//  * The mask is written once at the end, 32 cells from a bitmap word.
+//
 // Numerics: every add and subtract is an explicit round-to-nearest
-// intrinsic, never contracted (the build is -fmad=false too); the sums
-// run in the working type in queue order, as in the plain version.  The
-// distance test of the reducer squares integer offsets.
+// intrinsic, never contracted (the build is -fmad=false too); the FIFO
+// sums run in the working type in queue order, as in the plain version,
+// the wave sums in the working type in the order above (the plain version
+// sums in torch's order: f64 decisions agree, the angles to an ulp or so).
+// The distance test of the reducer squares integer offsets.
 
 #include <climits>
 #include <cuda_runtime.h>
@@ -132,6 +179,10 @@ __device__ __forceinline__ float abs_t(float a) { return fabsf(a); }
 __device__ __forceinline__ double abs_t(double a) { return fabs(a); }
 __device__ __forceinline__ float sqrt_t(float a) { return __fsqrt_rn(a); }
 __device__ __forceinline__ double sqrt_t(double a) { return __dsqrt_rn(a); }
+__device__ __forceinline__ float sin_t(float a) { return sinf(a); }
+__device__ __forceinline__ double sin_t(double a) { return sin(a); }
+__device__ __forceinline__ float cos_t(float a) { return cosf(a); }
+__device__ __forceinline__ double cos_t(double a) { return cos(a); }
 
 // Clear the whole (H, W) mask: 16-byte word t, t + n_clear, ... and tail
 // byte t below cells % 16, by clearing thread t of n_clear (the mask is a
@@ -245,10 +296,16 @@ __device__ __forceinline__ void load_seed(const Walk<T>& w, Nb<T>& b,
 // way and selected, as the plain version's branch would (both are exact
 // operations).
 template <typename T>
+__device__ __forceinline__ bool angle_pass(T d, T nd, T fold, T two_pi,
+                                           T thre) {
+  const T dif = abs_t(sub_rn(d, nd));
+  const T wrapped = abs_t(sub_rn(dif, two_pi));
+  return (dif > fold ? wrapped : dif) < thre;
+}
+
+template <typename T>
 __device__ __forceinline__ bool angle_ok(const Walk<T>& w, T nd) {
-  const T dif = abs_t(sub_rn(w.d, nd));
-  const T wrapped = abs_t(sub_rn(dif, w.two_pi));
-  return (dif > w.fold ? wrapped : dif) < w.thre;
+  return angle_pass(w.d, nd, w.fold, w.two_pi, w.thre);
 }
 
 // Accept lane L's neighbour, the walk's next acceptance: its sin/cos go
@@ -538,6 +595,361 @@ radius_reducer_fifo_kernel(int sx, int sy, T rad, int32_t* __restrict__ qy,
   }
 }
 
+// --- grow_wave ---------------------------------------------------------
+
+constexpr int kWaveStatic = 1024;   // static shared bytes grow_wave keeps
+constexpr int kWarps = kThreads / kWarp;
+
+template <typename T>
+struct WaveShared {
+  T part[2][kWarps];   // the wave's sin and cos sums, one a warp
+  // counters that only grow (mod 2^32): a phase's entries are the
+  // difference from their value at its start, read after a barrier
+  uint32_t acc_ctr, keep_ctr, app_ctr;
+};
+static_assert(sizeof(WaveShared<double>) <= kWaveStatic,
+              "grow_wave's static shared memory outgrew kWaveStatic");
+
+// One of grow_wave's two lists of packed cells (y << 16 | x): slots below
+// cap in shared memory, later ones at the same index of a global spill
+// buffer (a per-map queue buffer of H * W entries).
+struct Slots {
+  uint32_t* shared;
+  int cap;
+  int32_t* spill;
+
+  __device__ __forceinline__ uint32_t get(int j) const {
+    return j < cap ? shared[j] : static_cast<uint32_t>(spill[j]);
+  }
+  __device__ __forceinline__ void put(int j, uint32_t e) const {
+    if (j < cap) shared[j] = e;
+    else spill[j] = static_cast<int32_t>(e);
+  }
+};
+
+// The candidate list and the wave's accepted cells.
+struct WaveLists {
+  Slots list, acc;
+};
+
+// Which cells are in the region and which are listed.  With kSharedMask
+// two shared bitmaps, the region's and the seen one (region or listed),
+// the mask written from the first at the end; else the output mask itself
+// is the state, a byte a cell: 0 outside, 1 region, 2 listed (read through
+// L2, since its bytes change by atomics), the listed ones cleared at the
+// end.
+template <bool kSharedMask>
+struct WaveMarks {
+  uint32_t* reg;
+  uint32_t* seen;
+  uint8_t* cur;
+
+  __device__ __forceinline__ uint32_t* word(int idx) const {
+    return reinterpret_cast<uint32_t*>(cur) + (idx >> 2);
+  }
+  __device__ __forceinline__ void seed(int idx) const {
+    if constexpr (kSharedMask) {
+      atomicOr(reg + (idx >> 5), 1u << (idx & 31));
+      atomicOr(seen + (idx >> 5), 1u << (idx & 31));
+    } else {
+      atomicOr(word(idx), 1u << (8 * (idx & 3)));
+    }
+  }
+  // List cell idx unless it is in the region or listed; true when this
+  // thread listed it.
+  __device__ __forceinline__ bool claim(int idx) const {
+    if constexpr (kSharedMask) {
+      const uint32_t bit = 1u << (idx & 31);
+      if (seen[idx >> 5] & bit) return false;
+      return !(atomicOr(seen + (idx >> 5), bit) & bit);
+    } else {
+      const int sh = 8 * (idx & 3);
+      if ((__ldcg(word(idx)) >> sh) & 0xffu) return false;
+      return ((atomicOr(word(idx), 2u << sh) >> sh) & 0xffu) == 0u;
+    }
+  }
+  // A listed cell joins the region.
+  __device__ __forceinline__ void join(int idx) const {
+    if constexpr (kSharedMask)
+      atomicOr(reg + (idx >> 5), 1u << (idx & 31));
+    else
+      atomicXor(word(idx), 3u << (8 * (idx & 3)));   // 2 -> 1
+  }
+};
+
+template <typename T>
+__device__ __forceinline__ T warp_tree(T x) {
+  for (int off = kWarp / 2; off > 0; off >>= 1)
+    x = add_rn(x, __shfl_down_sync(0xffffffffu, x, off));
+  return x;
+}
+
+// 32 packed cells, one a lane, sorted ascending across the warp (the
+// bitonic network in its flip form; a lane without a cell holds ~0u).
+__device__ __forceinline__ uint32_t warp_sort(uint32_t e, int lane) {
+  for (int k = 2; k <= kWarp; k <<= 1) {
+    for (int m = k; m >= 2; m >>= 1) {
+      const int mask = m == k ? k - 1 : m >> 1;
+      const uint32_t o = __shfl_xor_sync(0xffffffffu, e, mask);
+      const bool lo = !(lane & (m >> 1));
+      e = lo ? min(e, o) : max(e, o);
+    }
+  }
+  return e;
+}
+
+// The wave's accepted cells acc[0, n) sorted ascending in place by the
+// whole block: the bitonic network in its flip form, where every
+// compare-exchange puts the smaller cell at the lower slot, so the slots
+// past n act as +infinity and their exchanges are skipped.  Ends on a
+// barrier.
+__device__ void block_sort(const WaveLists& q, int n) {
+  int P = 2;
+  while (P < n) P <<= 1;
+  for (int k = 2; k <= P; k <<= 1) {
+    for (int m = k; m >= 2; m >>= 1) {
+      const int half = m >> 1;
+      for (int p = threadIdx.x; p < (P >> 1); p += kThreads) {
+        const int base = (p / half) * m, off = p % half;
+        const int lo = base + off;
+        const int hi = m == k ? base + m - 1 - off : lo + half;
+        if (hi < n) {
+          const uint32_t a = q.acc.get(lo), b = q.acc.get(hi);
+          if (b < a) {
+            q.acc.put(lo, b);
+            q.acc.put(hi, a);
+          }
+        }
+      }
+      __syncthreads();
+    }
+  }
+}
+
+__device__ __forceinline__ int cell_of(uint32_t e, int W) {
+  return static_cast<int>(e >> 16) * W + static_cast<int>(e & 0xffffu);
+}
+
+// The sums of sin and cos over the wave's n accepted cells, in one order
+// fixed by their row-major index: the cells sorted, cell j added by
+// thread j % kThreads in turn, each warp's partial sums added as a tree
+// (shuffles), then the warps' as a tree.  With at most 32 cells warp 0
+// sorts and sums them alone.  Every thread returns the same sums; the
+// accepted cells are left sorted.
+template <typename T>
+__device__ void wave_sums(const WaveLists& q, WaveShared<T>& sh, int n,
+                          const T* __restrict__ sn,
+                          const T* __restrict__ cs, int W, T& s, T& c) {
+  const int t = threadIdx.x, lane = t & (kWarp - 1), warp = t >> 5;
+  if (n <= kWarp) {
+    if (warp == 0) {
+      const uint32_t e = warp_sort(lane < n ? q.acc.get(lane) : ~0u, lane);
+      T ps = T(0), pc = T(0);
+      if (lane < n) {
+        q.acc.put(lane, e);
+        ps = __ldg(sn + cell_of(e, W));
+        pc = __ldg(cs + cell_of(e, W));
+      }
+      ps = warp_tree(ps);
+      pc = warp_tree(pc);
+      if (lane == 0) {
+        sh.part[0][0] = ps;
+        sh.part[1][0] = pc;
+      }
+    }
+    __syncthreads();
+    s = sh.part[0][0];
+    c = sh.part[1][0];
+    return;
+  }
+  block_sort(q, n);
+  T ps = T(0), pc = T(0);
+  for (int j = t; j < n; j += kThreads) {
+    const int idx = cell_of(q.acc.get(j), W);
+    ps = add_rn(ps, __ldg(sn + idx));
+    pc = add_rn(pc, __ldg(cs + idx));
+  }
+  ps = warp_tree(ps);
+  pc = warp_tree(pc);
+  if (lane == 0) {
+    sh.part[0][warp] = ps;
+    sh.part[1][warp] = pc;
+  }
+  __syncthreads();
+  T v[2][kWarps];
+  for (int w = 0; w < kWarps; ++w) {
+    v[0][w] = sh.part[0][w];
+    v[1][w] = sh.part[1][w];
+  }
+  for (int len = kWarps / 2; len > 0; len >>= 1)
+    for (int w = 0; w < len; ++w) {
+      v[0][w] = add_rn(v[0][w], v[0][w + len]);
+      v[1][w] = add_rn(v[1][w], v[1][w + len]);
+    }
+  s = v[0][0];
+  c = v[1][0];
+}
+
+// List the free 8-neighbours of acc[0, n) that are neither in the region
+// nor listed: thread j % kThreads takes neighbour j % 8 of cell j / 8, a
+// warp's new entries appended together at nk + (app_ctr - app0).
+template <bool kSharedMask, typename T>
+__device__ void expand(const WaveLists& q, const WaveMarks<kSharedMask>& mk,
+                       WaveShared<T>& sh, int n, int nk, uint32_t app0,
+                       const uint8_t* __restrict__ free, int H, int W) {
+  const int lane = threadIdx.x & (kWarp - 1);
+  const long long total = 8LL * n;
+  for (long long base = 0; base < total; base += kThreads) {
+    const long long j = base + threadIdx.x;
+    bool add = false;
+    uint32_t c = 0u;
+    if (j < total) {
+      const uint32_t e = q.acc.get(static_cast<int>(j >> 3));
+      const int k = static_cast<int>(j & 7) + ((j & 7) >= 4);   // no centre
+      const int y = static_cast<int>(e >> 16) + k / 3 - 1;
+      const int x = static_cast<int>(e & 0xffffu) + k % 3 - 1;
+      if (static_cast<unsigned>(y) < static_cast<unsigned>(H) &&
+          static_cast<unsigned>(x) < static_cast<unsigned>(W)) {
+        const int idx = y * W + x;
+        add = __ldg(free + idx) && mk.claim(idx);
+        c = (static_cast<uint32_t>(y) << 16) | static_cast<uint32_t>(x);
+      }
+    }
+    const uint32_t am = __ballot_sync(0xffffffffu, add);
+    uint32_t b = 0u;
+    if (lane == 0 && am) b = atomicAdd(&sh.app_ctr, __popc(am));
+    b = __shfl_sync(0xffffffffu, b, 0);
+    if (add)
+      q.list.put(nk + static_cast<int>(b - app0) +
+                     __popc(am & ((1u << lane) - 1u)), c);
+  }
+}
+
+template <typename T, bool kSharedMask>
+__global__ void __launch_bounds__(kThreads, 1)
+grow_wave_kernel(int sy, int sx, const T* __restrict__ seed_deg, T thre_v,
+                 const T* __restrict__ thre_p,
+                 const uint8_t* __restrict__ free,
+                 const T* __restrict__ deg, const T* __restrict__ sn,
+                 const T* __restrict__ cs, int H, int W, int list_cap,
+                 int acc_cap, int32_t* __restrict__ list_spill,
+                 int32_t* __restrict__ acc_spill, uint8_t* __restrict__ cur,
+                 T* __restrict__ reg_deg, int32_t* __restrict__ counts) {
+  extern __shared__ uint32_t smem[];
+  __shared__ WaveShared<T> sh;
+  const int cells = H * W;
+  const int words = kSharedMask ? (cells + 31) >> 5 : 0;
+  const WaveMarks<kSharedMask> mk{smem, smem + words, cur};
+  const WaveLists q{{smem + 2 * words, list_cap, list_spill},
+                    {smem + 2 * words + list_cap, acc_cap, acc_spill}};
+  const int t = threadIdx.x, lane = t & (kWarp - 1);
+  const T thre = thre_p ? *thre_p : thre_v;
+  const T fold = T(1.5 * kPi), two_pi = T(2.0 * kPi);
+  const T a0 = *seed_deg;
+  T s_sin = sin_t(a0), s_cos = cos_t(a0);
+  T d = atan2_t(s_sin, s_cos);
+
+  if (kSharedMask) {
+    for (int j = t; j < 2 * words; j += kThreads) smem[j] = 0u;
+  } else {
+    clear_mask(cur, cells, t, kThreads);
+    __threadfence();
+  }
+  if (t == 0) {
+    sh.acc_ctr = sh.keep_ctr = sh.app_ctr = 0u;
+    q.acc.put(0, (static_cast<uint32_t>(sy) << 16) | static_cast<uint32_t>(sx));
+  }
+  __syncthreads();
+  // the seed joins the region and its neighbours start the list
+  if (t == 0) mk.seed(sy * W + sx);
+  int nk = 0, n = 1, waves = 0;
+  uint32_t app0 = 0u;
+  long long tests = 0;
+  expand(q, mk, sh, 1, nk, app0, free, H, W);
+  __syncthreads();
+
+  for (;;) {
+    // one wave: every listed cell tested against the angle d, fixed for
+    // the wave; the accepted ones join the region and move to acc, the
+    // others are kept, packed in place at the front of the list
+    const int nl = nk + static_cast<int>(sh.app_ctr - app0);
+    const uint32_t acc0 = sh.acc_ctr, keep0 = sh.keep_ctr;
+    ++waves;
+    tests += nl;
+    for (int base = 0; base < nl; base += kThreads) {
+      const int j = base + t;
+      const bool in = j < nl;
+      uint32_t e = 0u;
+      int idx = 0;
+      bool pass = false;
+      if (in) {
+        e = q.list.get(j);
+        idx = cell_of(e, W);
+        pass = angle_pass(d, __ldg(deg + idx), fold, two_pi, thre);
+      }
+      __syncthreads();   // the chunk is read before any entry moves
+      const uint32_t am = __ballot_sync(0xffffffffu, in && pass);
+      const uint32_t km = __ballot_sync(0xffffffffu, in && !pass);
+      uint32_t ab = 0u, kb = 0u;
+      if (lane == 0) {
+        if (am) ab = atomicAdd(&sh.acc_ctr, __popc(am));
+        if (km) kb = atomicAdd(&sh.keep_ctr, __popc(km));
+      }
+      ab = __shfl_sync(0xffffffffu, ab, 0);
+      kb = __shfl_sync(0xffffffffu, kb, 0);
+      const uint32_t below = (1u << lane) - 1u;
+      if (in && pass) {
+        q.acc.put(static_cast<int>(ab - acc0) + __popc(am & below), e);
+        mk.join(idx);
+      } else if (in) {
+        q.list.put(static_cast<int>(kb - keep0) + __popc(km & below), e);
+      }
+    }
+    __syncthreads();
+    const int na = static_cast<int>(sh.acc_ctr - acc0);
+    nk = static_cast<int>(sh.keep_ctr - keep0);
+    app0 = sh.app_ctr;
+    if (na == 0) break;
+    n += na;
+    T ws, wc;
+    wave_sums(q, sh, na, sn, cs, W, ws, wc);
+    s_sin = add_rn(s_sin, ws);
+    s_cos = add_rn(s_cos, wc);
+    d = atan2_t(s_sin, s_cos);
+    expand(q, mk, sh, na, nk, app0, free, H, W);
+    __syncthreads();
+  }
+
+  if (t == 0) {
+    *reg_deg = d;
+    counts[0] = n;
+    counts[1] = waves;
+    counts[2] = tests < INT_MAX ? static_cast<int32_t>(tests) : INT_MAX;
+  }
+  if (kSharedMask) {
+    // the mask from the region bitmap, 32 cells (two 16-byte stores) a word
+    const auto spread = [](uint32_t b) {   // bits 0-3 -> bytes 0-3
+      return (b & 1u) | ((b & 2u) << 7) | ((b & 4u) << 14) | ((b & 8u) << 21);
+    };
+    for (int w = t; w < words; w += kThreads) {
+      const uint32_t bits = mk.reg[w];
+      const int c0 = w << 5;
+      if (c0 + 32 <= cells) {
+        uint4* out = reinterpret_cast<uint4*>(cur + c0);
+        out[0] = make_uint4(spread(bits), spread(bits >> 4), spread(bits >> 8),
+                            spread(bits >> 12));
+        out[1] = make_uint4(spread(bits >> 16), spread(bits >> 20),
+                            spread(bits >> 24), spread(bits >> 28));
+      } else {
+        for (int b = 0; c0 + b < cells; ++b) cur[c0 + b] = (bits >> b) & 1u;
+      }
+    }
+  } else {
+    // the last wave kept every listed cell: they leave the mask
+    for (int j = t; j < nk; j += kThreads) cur[cell_of(q.list.get(j), W)] = 0;
+  }
+}
+
 // One step of grow_fifo's chain per accepted pixel: the sum's add, the
 // atan2, and the angle test of the next candidate, whose outcome picks
 // the next add.
@@ -672,6 +1084,41 @@ cudaError_t reduce(int sx, int sy, T rad, int32_t* qy, int32_t* qx,
   return cudaGetLastError();
 }
 
+template <typename T>
+cudaError_t wave(int sy, int sx, const T* seed_deg, T thre_v, const T* thre_p,
+                 const uint8_t* free, const T* deg, const T* sn, const T* cs,
+                 int H, int W, int shared_mask, int list_cap, int acc_cap,
+                 int32_t* list_spill, int32_t* acc_spill, uint8_t* cur,
+                 T* reg_deg, int32_t* counts, void* stream) {
+  if (H <= 0 || W <= 0 || H > kMaxSide || W > kMaxSide ||
+      static_cast<long long>(H) * W > INT_MAX || sy < 0 || sy >= H ||
+      sx < 0 || sx >= W || list_cap < 1 || acc_cap < 1 || !seed_deg ||
+      reinterpret_cast<uintptr_t>(cur) % 16 != 0)
+    return cudaErrorInvalidValue;
+  const long long words =
+      shared_mask ? 2 * ((static_cast<long long>(H) * W + 31) / 32) : 0;
+  const long long bytes = 4 * (words + list_cap + acc_cap);
+  if (bytes > kSmemMax - kWaveStatic) return cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (shared_mask) {
+    static int allowed[kMaxDevices];
+    err = allow_smem(grow_wave_kernel<T, true>, static_cast<int>(bytes), allowed);
+    if (err != cudaSuccess) return err;
+    grow_wave_kernel<T, true><<<1, kThreads, bytes, st>>>(
+        sy, sx, seed_deg, thre_v, thre_p, free, deg, sn, cs, H, W, list_cap,
+        acc_cap, list_spill, acc_spill, cur, reg_deg, counts);
+  } else {
+    static int allowed[kMaxDevices];
+    err = allow_smem(grow_wave_kernel<T, false>, static_cast<int>(bytes), allowed);
+    if (err != cudaSuccess) return err;
+    grow_wave_kernel<T, false><<<1, kThreads, bytes, st>>>(
+        sy, sx, seed_deg, thre_v, thre_p, free, deg, sn, cs, H, W, list_cap,
+        acc_cap, list_spill, acc_spill, cur, reg_deg, counts);
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -679,6 +1126,7 @@ extern "C" {
 // The block size and shared-memory budget ops/grow.py's plans must use.
 int32_t lsd_grow_threads() { return kThreads; }
 int32_t lsd_grow_smem_max() { return kSmemMax; }
+int32_t lsd_grow_wave_static() { return kWaveStatic; }
 
 // ring: kProbeRing int32 entries, ring[i] = (i + 1) % kProbeRing.
 cudaError_t lsd_grow_latency_probe(const int32_t* ring, int steps,
@@ -737,6 +1185,35 @@ cudaError_t lsd_radius_reducer_fifo_f64(int sx, int sy, double rad,
                                         void* stream) {
   return reduce<double>(sx, sy, rad, qy, qx, n_io, cur, fit, W, cap,
                        flag_words, gflags, stream);
+}
+
+// cur: the (H, W) uint8 mask, its allocation 16-byte aligned and rounded
+// up to 16 bytes; list_spill / acc_spill: H * W entries each (a per-map
+// queue buffer); shared_mask, list_cap, acc_cap: ops/grow.py:wave_plan.
+cudaError_t lsd_grow_wave_f32(int sy, int sx, const float* seed_deg,
+                              float thre_v, const float* thre_p,
+                              const uint8_t* free, const float* deg,
+                              const float* sn, const float* cs, int H, int W,
+                              int shared_mask, int list_cap, int acc_cap,
+                              int32_t* list_spill, int32_t* acc_spill,
+                              uint8_t* cur, float* reg_deg, int32_t* counts,
+                              void* stream) {
+  return wave<float>(sy, sx, seed_deg, thre_v, thre_p, free, deg, sn, cs, H,
+                     W, shared_mask, list_cap, acc_cap, list_spill, acc_spill,
+                     cur, reg_deg, counts, stream);
+}
+
+cudaError_t lsd_grow_wave_f64(int sy, int sx, const double* seed_deg,
+                              double thre_v, const double* thre_p,
+                              const uint8_t* free, const double* deg,
+                              const double* sn, const double* cs, int H,
+                              int W, int shared_mask, int list_cap,
+                              int acc_cap, int32_t* list_spill,
+                              int32_t* acc_spill, uint8_t* cur,
+                              double* reg_deg, int32_t* counts, void* stream) {
+  return wave<double>(sy, sx, seed_deg, thre_v, thre_p, free, deg, sn, cs, H,
+                      W, shared_mask, list_cap, acc_cap, list_spill,
+                      acc_spill, cur, reg_deg, counts, stream);
 }
 
 }  // extern "C"

@@ -9,8 +9,9 @@ reference package:
   live mask, one device -> host read per seed);
 * ``growth="wave"``: a region grows in waves; each wave accepts every
   8-neighbour that passes the angle test, then the running circular mean
-  is recomputed over the accepted set, until a wave accepts nothing (one
-  read per wave);
+  is recomputed over the accepted set, until a wave accepts nothing (the
+  grow_wave kernel, ops/grow.py: one launch and one read per growth
+  call);
 * ``growth="fifo"``: the reference's exact acceptance order, a queue
   whose running mean updates after every accepted pixel (the grow_fifo
   kernel, ops/grow.py: one launch and one read per growth call); the
@@ -28,8 +29,9 @@ runtime/collectives.Axis) and ``n_rows`` each rank holds rows
 [row0, row0 + H) of the field and runs the same host loop, every
 full-field pass reducing over its block and then over the axis: the seed
 is a pmax of the bin, then a pmin of the global row, then of the column;
-a growth wave's dilation takes the neighbours' boundary rows (the +-1
-halo) and its circular-mean sums are psummed; the rectangle fit reduces
+growth runs the plain wave loop, one read a wave: a wave's dilation takes
+the neighbours' boundary rows (the +-1 halo) and its circular-mean sums
+are psummed; the rectangle fit reduces
 over the axis (rect.py) and the NFA counts are psummed (nfa.py).  Every
 rank then holds the same scalars and emits the same lines.  FIFO growth
 keeps one global queue and is not sharded.
@@ -59,16 +61,12 @@ PI = math.pi
 GROWTH = ("wave", "fifo")
 
 
-def _dilate8(mask, axis: Axis = Axis.none()):
-    """8-neighbour dilation: a 3x3 max pool of the 0/1 mask (exact).  Over
-    ranks the mask is a row block: the previous rank's last row and the
-    next rank's first row join it first (zeros past either end), so a
-    wave crosses block boundaries as it crosses any row."""
+def _dilate8(mask, axis: Axis):
+    """8-neighbour dilation of a row block of a 0/1 mask (exact): the
+    previous rank's last row and the next rank's first row join it first
+    (zeros past either end), so a wave crosses block boundaries as it
+    crosses any row."""
     m = mask.to(torch.float32)
-    if axis.size == 1:
-        # the halo rows would be zeros, which the pool's padding gives
-        # already: skip the two launches a wave of joining them
-        return F.max_pool2d(m[None, None], 3, 1, 1)[0, 0] > 0.0
     up, dn = axis.halo(m[0], m[-1])
     m = torch.cat([up[None], m, dn[None]])
     return (F.max_pool2d(m[None, None], 3, 1, 1)[0, 0] > 0.0)[1:-1]
@@ -76,43 +74,32 @@ def _dilate8(mask, axis: Axis = Axis.none()):
 
 def _grow(seed_y: int, seed_x: int, seed_deg, deg_thre, free, deg_map,
           sin_map, cos_map, stats: MapPrepStats, row0: int = 0,
-          axis: Axis = Axis.none()):
+          axis: Axis = Axis.none(), queue=None):
     """Wave-synchronous region growth (reference: RegionGrower,
     myLSD.cpp:491-590).  free: the pixels growth may enter (used != 1;
     NFA-rejected value-2 pixels regrow, myLSD.cpp:534); sin_map/cos_map:
     sin/cos of deg_map.  Returns (cur mask, reg_deg (), pixel count,
-    None): the shape of _grow_fifo's return, with no queue.  row0/axis:
-    a row block of a sharded field; the wave's sums are psummed, so every
-    rank carries the same running angle and the fixpoint is global."""
-    cur = torch.zeros(deg_map.shape, dtype=torch.bool, device=deg_map.device)
-    if 0 <= seed_y - row0 < deg_map.shape[0]:
-        cur[seed_y - row0, seed_x] = True
-    sin = torch.sin(seed_deg)
-    cos = torch.cos(seed_deg)
-    deg = torch.atan2(sin, cos)
-    n = 1
-    while True:
-        stats.waves += 1
-        cand = _dilate8(cur, axis) & ~cur & free
-        dif = torch.abs(deg - deg_map)
-        dif = torch.where(dif > PI * 1.5, torch.abs(dif - 2 * PI), dif)
-        acc = cand & (dif < deg_thre)
-        n_acc = acc.sum()
-        s_sin = torch.where(acc, sin_map, 0.0).sum()
-        s_cos = torch.where(acc, cos_map, 0.0).sum()
-        if axis.size > 1:
-            # one collective: the count rides exactly in the float type
-            # (at one rank the stack would be a launch a wave for nothing)
-            n_acc, s_sin, s_cos = axis.psum(torch.stack(
-                [n_acc.to(s_sin.dtype), s_sin, s_cos]))
-        sin = sin + s_sin
-        cos = cos + s_cos
-        cur = cur | acc
-        deg = torch.atan2(sin, cos)
-        k = int(stats.to_host("grow", n_acc))
-        if k == 0:
-            return cur, deg, n, None
-        n += k
+    None): the shape of _grow_fifo's return, with no queue.
+
+    At one rank: one grow_wave call and one read of its counts (queue:
+    the per-map buffers of ops.grow.fifo_queue).  row0/axis: a row block
+    of a sharded field, grown by the plain version's loop with the halo
+    dilation, the wave's sums psummed and a read a wave, so every rank
+    carries the same running angle and the fixpoint is global."""
+    if axis.size == 1:
+        g = ogrow.grow_wave(seed_y, seed_x, seed_deg, deg_thre, free,
+                            deg_map, sin_map, cos_map, queue)
+        n, waves, _tests = (int(v) for v in stats.to_host("grow", g.counts))
+        stats.wave_calls += 1
+        stats.waves += waves
+        return g.cur, g.reg_deg, n, None
+    g = ogrow.grow_wave_reference(
+        seed_y - row0, seed_x, seed_deg, deg_thre, free, deg_map, sin_map,
+        cos_map, dilate=lambda m: _dilate8(m, axis), psum=axis.psum,
+        read=lambda t: stats.to_host("grow", t))
+    n, waves, _tests = g.counts.tolist()
+    stats.waves += waves
+    return g.cur, g.reg_deg, n, None
 
 
 def _grow_fifo(seed_y: int, seed_x: int, deg_thre, ban, deg_map, sin_map,
@@ -217,7 +204,9 @@ def _seed_walk(mag, deg_map, prebanned, max_grad, log_nt: float, sca: float,
     qlive = torch.where((q >= 1.0) & ~prebanned, q, -1.0)
     sin_map = torch.sin(deg_map)
     cos_map = torch.cos(deg_map)
-    queue = ogrow.fifo_queue(H, W, mag.device) if fifo else None
+    # the FIFO queue, or the wave kernel's spill space at one rank
+    queue = ogrow.fifo_queue(H, W, mag.device) \
+        if fifo or axis.size == 1 else None
     ends, n_lines = [], 0
 
     while True:
@@ -255,7 +244,8 @@ def _seed_walk(mag, deg_map, prebanned, max_grad, log_nt: float, sca: float,
             def grow_fn(cen_deg, new_thre):
                 with trace.span("mapprep.grow"):
                     return _grow(sy, sx, cen_deg, new_thre, free, deg_map,
-                                 sin_map, cos_map, stats, **block)
+                                 sin_map, cos_map, stats, queue=queue,
+                                 **block)
         cur, reg_deg, size, _growth = grow_fn(
             mrect.field_at(deg_map, sy, sx, **block), deg_thre)
         if size < reg_thre:

@@ -18,6 +18,8 @@ from lsdtpu_torch.runtime import trace
 class MapPrepStats:
     seeds: int = 0       # seed-walk iterations (seed pixels visited)
     waves: int = 0       # region-growth waves (wave growth)
+    wave_calls: int = 0  # wave growth calls at one rank (grow_wave launches
+    #                      on the card; each one device read)
     fifo_calls: int = 0  # FIFO growth calls (grow_fifo launches on the card)
     pops: int = 0        # pixels popped from the FIFO queues, all passes
     passes: int = 0      # FIFO queue passes (the first and every re-sweep)

@@ -1,7 +1,7 @@
 """The CalcScore kernel (lsdtpu_torch/csrc/score.cu, on every field
 storage type and on a window), the NFA rect_counts kernel
-(lsdtpu_torch/csrc/nfa.cu) and the FIFO growth and radius-reducer
-kernels (lsdtpu_torch/csrc/grow.cu) against their plain PyTorch versions
+(lsdtpu_torch/csrc/nfa.cu) and the FIFO growth, radius-reducer and
+wave growth kernels (lsdtpu_torch/csrc/grow.cu) against their plain PyTorch versions
 on the card; map prep, the streaming OnlineLocalizer (tracking and
 legacy), the pose polish and a checkpoint resume on the card against
 the CPU; the lane-batched CalcScore launch against its plain version
@@ -17,7 +17,10 @@ launch's lanes bitwise equal to single-lane launches; f64 map lines card
 vs CPU within 1e-6 px
 (CUDA's sin/cos/atan2 and reduction order differ from the CPU's); FIFO
 growth in f64: the same region, queue and count, reg_deg within 1e-12
-(only atan2 differs: both read the same sin/cos tables); streaming on
+(only atan2 differs: both read the same sin/cos tables); wave growth:
+the same region and counts, reg_deg within 1e-12 in f64 and 1e-5 in
+f32 (CUDA's sin, cos and atan2, and the kernel's sums in row-major order
+against torch's); streaming on
 the card bitwise equal to run_sequence there; f64 sessions card vs CPU
 with identical decisions (tracking poses within 1e-6 px, the legacy
 first-minimum pose identical); a row block's counts (NFA and CalcScore)
@@ -612,6 +615,171 @@ def test_prepare_map_fifo_card_matches_cpu():
     assert og.grow_fifo.launches - before == st_gpu.fifo_calls \
         == st_cpu.fifo_calls
     assert (st_gpu.pops, st_gpu.passes) == (st_cpu.pops, st_cpu.passes)
+    a, b = gpu.lines_info.cpu().numpy(), cpu.lines_info.numpy()
+    assert a.shape == b.shape
+    np.testing.assert_allclose(a[:, 4:8], b[:, 4:8], rtol=0, atol=1e-9)
+
+
+def _assert_wave_equals_plain(og, sy, sx, a0, thre, d, s, c, free,
+                              queue=None):
+    """One grow_wave launch against its plain version on the CPU: the
+    same region and counts [n, waves, tests]; reg_deg within 1e-12 in f64
+    and 1e-5 in f32 (CUDA's sin, cos and atan2, and the kernel's sums in
+    row-major order against torch's order)."""
+    before = og.grow_wave.launches
+    g = og.grow_wave(sy, sx, a0, thre, free, d, s, c, queue)
+    torch.cuda.synchronize()
+    assert og.grow_wave.launches == before + 1
+    want = og.grow_wave_reference(
+        sy, sx, a0.cpu(), thre.cpu() if torch.is_tensor(thre) else thre,
+        free.cpu(), d.cpu(), s.cpu(), c.cpu())
+    assert g.counts.tolist() == want.counts.tolist()
+    assert torch.equal(g.cur.cpu(), want.cur)
+    tol = 1e-12 if d.dtype == torch.float64 else 1e-5
+    assert abs(float(g.reg_deg) - float(want.reg_deg)) <= tol
+    return g
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_grow_wave_kernel_matches_plain_on_card(dtype):
+    """Growths from random seeds of a coherent field with a random ban,
+    at float and tensor tolerances, from the seed's angle and from
+    another one: one launch each, the plain version's region and
+    counts."""
+    _need_card()
+    from lsdtpu_torch.ops import grow as og
+    d, s, c, ban, rng = _grow_case(0, dtype)
+    H, W = d.shape
+    free = ~ban
+    queue = og.fifo_queue(H, W, "cuda")
+    largest = 0
+    for k in range(12):
+        sy, sx = int(rng.integers(0, H)), int(rng.integers(0, W))
+        thre = 0.3927 if k % 2 else torch.tensor(0.55, dtype=d.dtype,
+                                                 device="cuda")
+        a0 = d[sy, sx] if k % 3 else d[sy, sx] + 0.05
+        g = _assert_wave_equals_plain(og, sy, sx, a0, thre, d, s, c, free,
+                                      queue)
+        largest = max(largest, int(g.counts[0]))
+    assert largest > 100
+
+
+def test_grow_wave_kernel_repeats_bitwise_and_floods_on_card():
+    """A launch repeats bit for bit (50 launches); a free field of one
+    angle floods whole, a wave a ring."""
+    _need_card()
+    from lsdtpu_torch.ops import grow as og
+    d = torch.zeros((293, 432), dtype=torch.float64, device="cuda")
+    free = torch.ones_like(d, dtype=torch.bool)
+    g = _assert_wave_equals_plain(og, 100, 200, d[100, 200], 0.4, d,
+                                  torch.sin(d), torch.cos(d), free)
+    assert bool(g.cur.all()) and g.counts.tolist()[:2] == [293 * 432, 232]
+    d2, s2, c2, ban2, (sy, sx) = _maze_case(np.float64, 200, 200,
+                                            (0, 0, 200, 200), 3)
+    queue = og.fifo_queue(200, 200, "cuda")
+    ref = og.grow_wave(sy, sx, d2[sy, sx], 0.4, ~ban2, d2, s2, c2, queue)
+    ref = ref.cur.clone(), ref.reg_deg.clone(), ref.counts.clone()
+    assert int(ref[2][0]) > 20000
+    for _ in range(50):
+        r = og.grow_wave(sy, sx, d2[sy, sx], 0.4, ~ban2, d2, s2, c2, queue)
+        assert torch.equal(r.cur, ref[0]) and torch.equal(r.reg_deg, ref[1])
+        assert torch.equal(r.counts, ref[2])
+
+
+def _comb_case(dtype, H, W):
+    """Even rows and column 0 at one angle, the other cells a second one
+    far from it: growth from (0, 0) runs down the spine and along every
+    tooth, and lists every cell between the teeth."""
+    deg = np.full((H, W), 1.9)
+    deg[::2] = 0.1
+    deg[:, 0] = 0.1
+    d = torch.from_numpy(deg.astype(dtype)).cuda()
+    return d, torch.sin(d), torch.cos(d)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_grow_wave_kernel_spills_the_shared_lists_on_card(dtype,
+                                                         monkeypatch):
+    """A comb whose candidate list outgrows the shared list (its later
+    entries in the global spill buffer), and a maze region under a plan
+    of 16 shared entries a list (QUEUE_CAP cut to 16: both lists and the
+    block's sort past them): the plain version's region and counts."""
+    _need_card()
+    from lsdtpu_torch.ops import grow as og
+    H, W = 200, 400
+    d, s, c = _comb_case(dtype, H, W)
+    free = torch.ones((H, W), dtype=torch.bool, device="cuda")
+    g = _assert_wave_equals_plain(og, 0, 0, d[0, 0], 0.4, d, s, c, free)
+    plan = og.wave_plan(H, W)
+    listed = int((~g.cur).sum())       # every cell between the teeth
+    assert plan.shared_mask and listed > plan.list_cap
+    d, s, c, ban, (sy, sx) = _maze_case(dtype, 200, 200, (0, 0, 200, 200), 4)
+    monkeypatch.setattr(og, "QUEUE_CAP", 16)
+    small = og.wave_plan(200, 200)
+    assert small.shared_mask and small.list_cap == small.acc_cap == 16
+    g = _assert_wave_equals_plain(og, sy, sx, d[sy, sx], 0.4, d, s, c, ~ban)
+    assert int(g.counts[0]) > 20000
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_grow_wave_kernel_field_above_bitmap_budget_on_card(dtype):
+    """A 1600 x 1600 field, whose bitmaps would not fit in shared memory:
+    the state lives in the global mask, and a region near the far corner
+    and a small one at the origin equal the plain version."""
+    _need_card()
+    from lsdtpu_torch.ops import grow as og
+    d, s, c, ban, (sy, sx) = _maze_case(dtype, 1600, 1600,
+                                        (1500, 1480, 60, 80), 5)
+    assert not og.wave_plan(1600, 1600).shared_mask
+    g = _assert_wave_equals_plain(og, sy, sx, d[sy, sx], 0.4, d, s, c, ~ban)
+    assert int(g.counts[0]) > 1000
+    g = _assert_wave_equals_plain(og, 0, 0, d[0, 0], 0.4, d, s, c, ~ban)
+    assert 1 <= int(g.counts[0]) < 1000
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_grow_wave_kernel_reuses_the_buffers_on_card(dtype):
+    """One per-map queue through growths of every size, as map prep uses
+    it: each region is the plain version's, in a mask of its own that the
+    next call leaves as it was."""
+    _need_card()
+    from lsdtpu_torch.ops import grow as og
+    d, s, c, ban, (sy, sx) = _maze_case(dtype, 200, 200, (0, 0, 200, 200), 7)
+    H, W = d.shape
+    queue = og.fifo_queue(H, W, "cuda")
+    rng = np.random.default_rng(7)
+    seeds = [(sy, sx)] + [(int(rng.integers(0, H)), int(rng.integers(0, W)))
+                          for _ in range(6)] + [(sy, sx), (0, 0)]
+    sizes, prev = [], None
+    for y, x in seeds:
+        g = _assert_wave_equals_plain(og, y, x, d[y, x], FIFO_THRE, d, s, c,
+                                      ~ban, queue)
+        if prev is not None:
+            assert torch.equal(prev[0], prev[1])
+        sizes.append(int(g.counts[0]))
+        prev = g.cur.clone(), g.cur
+    assert sizes[0] > og.wave_plan(H, W).list_cap and min(sizes) < 10
+
+
+def test_prepare_map_wave_card_matches_cpu():
+    """Wave map prep of a small map on the card and on the CPU in f64:
+    the same seeds, waves and growth calls, the same lines (endpoints
+    within 1e-9 px), and one grow_wave launch per growth call."""
+    _need_card()
+    from lsdtpu_torch.mapprep.pipeline import prepare_map
+    from lsdtpu_torch.mapprep.stats import MapPrepStats
+    from lsdtpu_torch.ops import grow as og
+    from test_fuzz_parity import synth_map
+    g = synth_map(1)
+    st_cpu, st_gpu = MapPrepStats(), MapPrepStats()
+    cpu = prepare_map(g, 0.05, growth="wave", dtype=torch.float64,
+                      device="cpu", stats=st_cpu)
+    before = og.grow_wave.launches
+    gpu = prepare_map(g, 0.05, growth="wave", dtype=torch.float64,
+                      device="cuda", stats=st_gpu)
+    assert og.grow_wave.launches - before == st_gpu.wave_calls \
+        == st_cpu.wave_calls > 0
+    assert (st_gpu.seeds, st_gpu.waves) == (st_cpu.seeds, st_cpu.waves)
     a, b = gpu.lines_info.cpu().numpy(), cpu.lines_info.numpy()
     assert a.shape == b.shape
     np.testing.assert_allclose(a[:, 4:8], b[:, 4:8], rtol=0, atol=1e-9)

@@ -29,7 +29,18 @@ of queue entries tested by a warp's lanes together, the next window
 loaded ahead; the reducer's far flags decided first and the
 swap-with-last walk taken in runs over the flag words, its slots past
 the cap in the global queue - equal ``grow_fifo_reference`` and
-``radius_reducer_fifo_reference``."""
+``radius_reducer_fifo_reference``.
+
+Wave growth (csrc/grow.cu): one block with two bitmaps and two lists on
+the chip.  ``ops/grow.py:wave_plan`` puts the bitmaps and the lists in
+the shared budget (the state in the global mask above it, the lists
+spilling past their caps); its sorts order a wave's accepted cells (the
+block's bitonic network with slots past the count skipped, one warp's
+for at most 32); the final mask write spreads a bitmap word over 32
+bytes; a plain mirror of its waves - the list tested in chunks and
+packed in place, the accepted cells sorted and summed in the kernel's
+order, their neighbours claimed once, warps in a random order - equals
+``grow_wave_reference``."""
 
 import math
 
@@ -730,3 +741,279 @@ def test_reduce_kernel_walk_equals_plain(cap):
             assert mq[1][:n0] == qx[:n0].tolist()
             assert mcur == cur.reshape(-1).to(torch.uint8).tolist()
             assert mfit == fit.reshape(-1).to(torch.uint8).tolist()
+
+
+# --- wave growth -------------------------------------------------------
+
+@pytest.mark.parametrize("H,W,shared,cap", [
+    (1, 1, True, 1), (3, 5, True, 15), (96, 128, True, 96 * 128),
+    (293, 432, True, ogrow.QUEUE_CAP), (587, 433, True, ogrow.QUEUE_CAP),
+    (979, 1440, False, ogrow.QUEUE_CAP), (1600, 1600, False, ogrow.QUEUE_CAP),
+    (1, 65535, True, ogrow.QUEUE_CAP)])
+def test_wave_plan_fits_the_shared_budget(H, W, shared, cap):
+    """grow_wave's two bitmaps are in shared memory exactly when they fit
+    beside QUEUE_MIN entries of each list, in the budget less the
+    kernel's static bytes; the two lists share the rest, each up to
+    QUEUE_CAP and the field's cells."""
+    pl = ogrow.wave_plan(H, W)
+    assert (pl.shared_mask, pl.list_cap, pl.acc_cap) == (shared, cap, cap)
+    words = 2 * -(-H * W // 32)
+    budget = ogrow.SMEM_MAX - ogrow.WAVE_STATIC
+    assert shared == (4 * (words + 2 * min(ogrow.QUEUE_MIN, H * W))
+                      <= budget)
+    assert pl.smem_bytes == 4 * ((words if shared else 0) + 2 * cap) \
+        <= budget
+
+
+def test_wave_plan_map_prep_field():
+    """The 293 x 432 map-prep field: two 16 KB bitmaps and two lists of
+    16,384 entries; a list spills only past them."""
+    pl = ogrow.wave_plan(293, 432)
+    assert pl.shared_mask and pl.smem_bytes == 4 * (2 * 3956 + 2 * 16384)
+
+
+@pytest.mark.parametrize("H,W", [(0, 4), (65536, 2), (65535, 65535)])
+def test_wave_plan_rejects_fields_the_kernel_cannot_pack(H, W):
+    with pytest.raises(ValueError):
+        ogrow.wave_plan(H, W)
+
+
+def _flip_steps(P, n):
+    """csrc/grow.cu:block_sort's compare-exchanges on P slots (a power of
+    two), step by step: pair p of a flip step of block size k is (lo,
+    base + k - 1 - off), of a later step of size m (lo, lo + m / 2); an
+    exchange whose upper slot lies past n is skipped."""
+    steps, k = [], 2
+    while k <= P:
+        m = k
+        while m >= 2:
+            half, step = m >> 1, []
+            for p in range(P >> 1):
+                base, off = (p // half) * m, p % half
+                lo = base + off
+                hi = base + m - 1 - off if m == k else lo + half
+                if hi < n:
+                    step.append((lo, hi))
+            steps.append(step)
+            m >>= 1
+        k <<= 1
+    return steps
+
+
+def _block_sort(vals):
+    v, n, P = list(vals), len(vals), 2
+    while P < n:
+        P <<= 1
+    for step in _flip_steps(P, n):
+        slots = [s for pair in step for s in pair]
+        assert len(slots) == len(set(slots))   # a step's threads never meet
+        for lo, hi in step:
+            if v[hi] < v[lo]:
+                v[lo], v[hi] = v[hi], v[lo]
+    return v
+
+
+def _warp_sort(vals):
+    """csrc/grow.cu:warp_sort: lane l holds vals[l] (~0 past them) and
+    takes the min or max with lane l ^ mask."""
+    e = list(vals) + [0xFFFFFFFF] * (WARP - len(vals))
+    k = 2
+    while k <= WARP:
+        m = k
+        while m >= 2:
+            mask = k - 1 if m == k else m >> 1
+            e = [min(e[lane], e[lane ^ mask]) if not lane & (m >> 1)
+                 else max(e[lane], e[lane ^ mask]) for lane in range(WARP)]
+            m >>= 1
+        k <<= 1
+    return e
+
+
+@pytest.mark.parametrize("n", [2, 3, 5, 31, 32, 33, 64, 100, 256, 257, 1000,
+                               4097])
+def test_wave_sorts_order_the_accepted_cells(n):
+    """The sorts grow_wave takes before it sums a wave: the block's
+    bitonic network with the slots past n skipped, and for at most 32
+    cells one warp's, each ascending over packed cells."""
+    rng = np.random.default_rng(n)
+    cells = [int(c) for c in rng.choice(2 ** 26, n, replace=False)]
+    vals = [(c // 4096) << 16 | (c % 4096) for c in cells]
+    assert _block_sort(vals) == sorted(vals)
+    if n <= WARP:
+        e = _warp_sort(vals)
+        assert e[:n] == sorted(vals) and e[n:] == [0xFFFFFFFF] * (WARP - n)
+
+
+def test_wave_mask_spread_writes_a_byte_a_bit():
+    """The final mask write: bitmap word bits b..b+3 become four bytes of
+    one 32-bit lane of a 16-byte store, little-endian."""
+    def spread(b):
+        return (b & 1) | ((b & 2) << 7) | ((b & 4) << 14) | ((b & 8) << 21)
+
+    rng = np.random.default_rng(0)
+    for bits in [0, 0xFFFFFFFF, 1, 1 << 31] + [
+            int(x) for x in rng.integers(0, 2 ** 32, 50)]:
+        words = [spread(bits >> s) & 0x01010101 for s in range(0, 32, 4)]
+        got = np.frombuffer(np.array(words, dtype="<u4").tobytes(), np.uint8)
+        assert got.tolist() == [(bits >> i) & 1 for i in range(32)]
+
+
+def _warp_tree(x):
+    """A warp's shuffle-down tree: lane l adds lane l + off (its own
+    value past the warp), off = 16 .. 1; lane 0's sum."""
+    x = list(x) + [0.0] * (WARP - len(x))
+    off = WARP // 2
+    while off:
+        x = [x[i] + x[i + off] if i + off < WARP else x[i] + x[i]
+             for i in range(WARP)]
+        off >>= 1
+    return x[0]
+
+
+def _wave_sums(vals):
+    """csrc/grow.cu:wave_sums' order over the sorted cells' values: one
+    warp's tree for at most 32, else thread t adds cells t, t + 256, ...
+    in turn, each warp's tree, then the eight warps' tree."""
+    if len(vals) <= WARP:
+        return _warp_tree(vals)
+    part = [0.0] * ogrow.THREADS
+    for j, v in enumerate(vals):
+        part[j % ogrow.THREADS] += v
+    w = [_warp_tree(part[i:i + WARP]) for i in range(0, ogrow.THREADS, WARP)]
+    while len(w) > 1:
+        h = len(w) // 2
+        w = [a + b for a, b in zip(w[:h], w[h:])]
+    return w[0]
+
+
+def _wave_mirror(sy, sx, seed_deg, thre, free, deg, sn, cs, list_cap,
+                 acc_cap, rng):
+    """A plain mirror of csrc/grow.cu:grow_wave_kernel in f64: the list
+    and the accepted cells as packed entries in shared slots below their
+    caps and in the spill buffers past them, the seen and region sets; a
+    wave tests the list in chunks of 256, the warps of a chunk moving
+    their passes and fails in a random order (the atomics' order), the
+    accepted cells sorted and summed in the kernel's order, their
+    neighbours claimed and appended warp by warp in a random order.
+    Returns (mask, angle, [n, waves, tests], the largest list, the
+    largest wave)."""
+    H, W = deg.shape
+    fold, two_pi = 1.5 * math.pi, 2.0 * math.pi
+    freef, degf, snf, csf = (a.reshape(-1) for a in (free, deg, sn, cs))
+    store = {"list": ([0] * list_cap, [0] * (H * W), list_cap),
+             "acc": ([0] * acc_cap, [0] * (H * W), acc_cap)}
+
+    def get(name, j):
+        sh, gl, cap = store[name]
+        return sh[j] if j < cap else gl[j]
+
+    def put(name, j, e):
+        sh, gl, cap = store[name]
+        if j < cap:
+            sh[j] = e
+        else:
+            gl[j] = e
+
+    def cell(e):
+        return (e >> 16) * W + (e & 0xFFFF)
+
+    region, seen = {sy * W + sx}, {sy * W + sx}
+    warps = ogrow.THREADS // WARP
+
+    def expand(na, nk):
+        app, total = 0, 8 * na
+        for base in range(0, total, ogrow.THREADS):
+            for w in rng.permutation(warps):
+                new = []
+                for lane in range(WARP):
+                    j = base + w * WARP + lane
+                    if j >= total:
+                        continue
+                    e = get("acc", j >> 3)
+                    k = (j & 7) + ((j & 7) >= 4)
+                    y, x = (e >> 16) + k // 3 - 1, (e & 0xFFFF) + k % 3 - 1
+                    if 0 <= y < H and 0 <= x < W and freef[y * W + x] \
+                            and y * W + x not in seen:
+                        seen.add(y * W + x)
+                        new.append(y << 16 | x)
+                for i, c in enumerate(new):
+                    put("list", nk + app + i, c)
+                app += len(new)
+        return nk + app
+
+    s_sin, s_cos = math.sin(seed_deg), math.cos(seed_deg)
+    d = math.atan2(s_sin, s_cos)
+    put("acc", 0, sy << 16 | sx)
+    nl = expand(1, 0)
+    n, waves, tests, most_list, most_acc = 1, 0, 0, nl, 0
+    while True:
+        waves += 1
+        tests += nl
+        na = nk = 0
+        for base in range(0, nl, ogrow.THREADS):
+            chunk = [get("list", j) for j in range(base, min(nl, base +
+                                                             ogrow.THREADS))]
+            for w in rng.permutation(warps):
+                lanes = chunk[w * WARP:(w + 1) * WARP]
+                ok = []
+                for e in lanes:
+                    dif = abs(d - degf[cell(e)])
+                    wrapped = abs(dif - two_pi)
+                    ok.append((wrapped if dif > fold else dif) < thre)
+                for e in [e for e, p in zip(lanes, ok) if p]:
+                    put("acc", na, e)
+                    region.add(cell(e))
+                    na += 1
+                for e in [e for e, p in zip(lanes, ok) if not p]:
+                    put("list", nk, e)
+                    nk += 1
+        if na == 0:
+            break
+        n += na
+        most_acc = max(most_acc, na)
+        cells = [get("acc", j) for j in range(na)]
+        cells = _warp_sort(cells)[:na] if na <= WARP else _block_sort(cells)
+        for j, e in enumerate(cells):
+            put("acc", j, e)
+        s_sin = s_sin + _wave_sums([float(snf[cell(e)]) for e in cells])
+        s_cos = s_cos + _wave_sums([float(csf[cell(e)]) for e in cells])
+        d = math.atan2(s_sin, s_cos)
+        nl = expand(na, nk)
+        most_list = max(most_list, nl)
+    mask = np.zeros(H * W, bool)
+    mask[list(region)] = True
+    return mask.reshape(H, W), d, [n, waves, tests], most_list, most_acc
+
+
+@pytest.mark.parametrize("list_cap,acc_cap", [(1, 1), (7, 40), (64, 5),
+                                              (10 ** 6, 10 ** 6)])
+def test_wave_kernel_walk_equals_plain(list_cap, acc_cap):
+    """The wave kernel's decomposition - the candidate list tested in
+    chunks and packed in place, the accepted cells moved out, sorted and
+    summed in a fixed order, their neighbours claimed once - with its
+    lists spilling past their caps, equals grow_wave_reference in f64:
+    the same region and counts, the angle within 1e-12 (the sums' order
+    is not torch's), regions large and small, at the field's edges, a
+    wave of more than 32 cells among them."""
+    H, W = 24, 30
+    deg, sn, cs, ban, rng = _coherent_field(13, H, W)
+    free = ~ban
+    t = {k: torch.from_numpy(v) for k, v in
+         (("deg", deg), ("sn", sn), ("cs", cs), ("free", free))}
+    seeds = [(0, 0), (H - 1, W - 1), (0, W - 1)] + [
+        (int(rng.integers(0, H)), int(rng.integers(0, W))) for _ in range(9)]
+    most_list = most_acc = 0
+    for k, (sy, sx) in enumerate(seeds):
+        thre = (0.3, 0.55, 2.0)[k % 3]
+        a0 = deg[sy, sx] + (0.05 if k % 4 == 1 else 0.0)
+        mask, d, counts, ml, ma = _wave_mirror(
+            sy, sx, a0, thre, free, deg, sn, cs, list_cap, acc_cap,
+            np.random.default_rng(k))
+        want = ogrow.grow_wave_reference(
+            sy, sx, torch.tensor(a0, dtype=torch.float64), thre, t["free"],
+            t["deg"], t["sn"], t["cs"])
+        assert counts == want.counts.tolist()
+        assert np.array_equal(mask, want.cur.numpy())
+        assert abs(d - float(want.reg_deg)) <= 1e-12
+        most_list, most_acc = max(most_list, ml), max(most_acc, ma)
+    assert most_acc > WARP and most_list > 64
