@@ -9,6 +9,22 @@ names of its entry spans (``serving``).  ``mode`` is ``"program"`` (the
 benchmark), ``"control"`` (the reference in bfloat16 in the program's
 place: no window) or ``"cache-bf16"`` (the program with its bfloat16
 field).
+
+A cell whose ``chips`` N is above 1 runs over N ranks, one card each,
+and only with a kind that declares ``ranks = True`` (the harness exits
+2 before set-up otherwise).  The harness's process is rank 0; it starts
+ranks 1..N-1 during set-up (harness/ranks.py).  Every rank has
+torchrun's environment (MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK,
+LOCAL_RANK, LOCAL_WORLD_SIZE) and card LOCAL_RANK current, builds its
+own ``Run`` with ``rank`` and ``world`` set, and runs ``setup()``,
+``window()`` and ``release()``; the program starts its own process
+group (``lsdtpu_torch.runtime.distributed.initialize()``), as under
+torchrun.  After the window every other rank hands rank 0 its card
+(harness/trace.py ``Card``: peak memory, traced events, spans,
+counters), which rank 0's run finds in ``cards``, indexed by rank.
+Rank 0 alone then calls ``end_to_end()``, ``slice_counts()``,
+``notes()`` and ``judge()``: it holds every slot's answers after the
+program's gather.
 """
 
 from __future__ import annotations
@@ -70,6 +86,9 @@ class Base:
     """A run of one cell."""
 
     serving: tuple = ()
+    ranks: bool = False     # runs over several cards (module docstring)
+    rank: int = 0
+    world: int = 1
 
     def __init__(self, cell, seed: int, device: str = "cuda",
                  mode: str = "program"):

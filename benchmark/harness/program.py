@@ -7,11 +7,13 @@ aligned to) while a torch.profiler profile is active in the process,
 which the traced slice is.  A reader takes them from the program in the
 same process, clipped to the slice, and measures what of them the
 device spent idle against the slice's busy intervals.  A program
-without the tracer has no spans: every reader then returns None."""
+without the tracer has no spans: every reader then returns None.  In a
+cell over several cards the other ranks hand theirs to rank 0 with
+their cards (``card_program_spans``)."""
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import List, NamedTuple, Optional, Sequence
 
 from harness.trace import clip, overlap, union
 
@@ -29,6 +31,40 @@ def program_spans(t) -> list:
         return []
     lo, hi = t.slice
     return [s for s in records if s.end_ns > lo and s.start_ns < hi]
+
+
+class ProgramSpan(NamedTuple):
+    """A program span record handed over by another rank (the fields of
+    lsdtpu_torch.runtime.trace.SpanRecord)."""
+    name: str
+    start_ns: int
+    end_ns: int
+    parent: Optional[int]
+    request: object
+    counts: dict
+    id: int
+
+
+def recorded():
+    """The program's span records and counters in this process ([] and
+    {} where the program keeps none)."""
+    try:
+        from lsdtpu_torch.runtime import trace as ptrace
+        return ptrace.spans(), ptrace.counters()
+    except (ImportError, AttributeError):
+        return [], {}
+
+
+def card_program_spans(t, rank: int) -> list:
+    """``program_spans`` of the card of ``rank``: rank 0's read in this
+    process, another rank's from its card."""
+    if rank == 0:
+        return program_spans(t)
+    if t.slice is None:
+        return []
+    lo, hi = t.slice
+    return [s for s in t.cards[rank].program_spans
+            if s.end_ns > lo and s.start_ns < hi]
 
 
 def intervals(spans, names: Sequence[str]) -> List[tuple]:

@@ -4,7 +4,9 @@
 traffic file is ``workloads/<cell>.json``, its configuration the file
 its configuration entry names, its traffic kind ``traffic/<kind>.py``
 and each per-layer metric ``metrics/<metric>.py``.  Adding a cell, a
-configuration or a metric adds files and entries and edits none."""
+configuration or a metric adds files and entries and edits none.  A
+cell built in code (the tests) may name its traffic kind's file itself
+(``kind_file``)."""
 
 from __future__ import annotations
 
@@ -12,6 +14,7 @@ import dataclasses
 import importlib.util
 import json
 from pathlib import Path
+from typing import Optional
 
 BENCH_DIR = Path(__file__).resolve().parents[1]
 ROOT = BENCH_DIR.parent
@@ -40,14 +43,16 @@ class Cell:
     workload: dict       # workloads/<cell>.json
     end_to_end: list     # BENCHMARK.json's end-to-end metrics of this cell
     per_layer: list      # BENCHMARK.json's per-layer metrics of this cell
+    kind_file: Optional[str] = None   # default traffic/<kind>.py
 
     @property
     def kind(self) -> str:
         return self.workload["traffic"]
 
     def traffic_module(self):
-        return load_module(BENCH_DIR / "traffic" / f"{self.kind}.py",
-                           f"traffic_{self.kind}")
+        path = Path(self.kind_file) if self.kind_file else \
+            BENCH_DIR / "traffic" / f"{self.kind}.py"
+        return load_module(path, f"traffic_{self.kind}")
 
     def metric_reader(self, name: str):
         return load_module(BENCH_DIR / "metrics" / f"{name}.py",

@@ -12,6 +12,13 @@ kernel the program never launches (``i1e``), launched right after the
 host clock is read with the device idle, so its device start is that
 reading plus one launch latency (a few us).
 The raw kineto events are read; no Chrome trace is written.
+
+In a cell over several cards each rank traces its own card and puts its
+events on the host clock by its own marker: ``time.perf_counter_ns`` is
+CLOCK_MONOTONIC, one clock for every process of a host.  Rank 0 gathers
+every card (``Card``) after the window; ``TraceView.events`` stays rank
+0's, so a reader written for one card reads what it read before, and
+``cards`` hold them all.
 """
 
 from __future__ import annotations
@@ -170,15 +177,40 @@ def clip(intervals, lo: int, hi: int):
 
 
 @dataclasses.dataclass
+class Card:
+    """One card of a run as its rank hands it to rank 0: its peak memory,
+    its traced slice and that slice's device events on the host clock,
+    the benchmark's spans and counters, the program's span records and
+    counters, and the forbidden modules loaded in its process."""
+    rank: int
+    memory_peak_bytes: int
+    events: List[Event] = dataclasses.field(default_factory=list)
+    slice: Optional[Tuple[int, int]] = None
+    spans: List[Span] = dataclasses.field(default_factory=list)
+    counters: Dict[str, float] = dataclasses.field(default_factory=dict)
+    program_spans: list = dataclasses.field(default_factory=list)
+    program_counters: Dict[str, int] = dataclasses.field(
+        default_factory=dict)
+    forbidden: List[str] = dataclasses.field(default_factory=list)
+
+
+@dataclasses.dataclass
 class TraceView:
     """What a per-layer metric reader reads: the window's spans and
-    counters, and the traced slice's device events and counts."""
+    counters, and the traced slice's device events and counts, all of
+    rank 0; and every card of the run (``cards``, indexed by rank, rank
+    0's first)."""
     spans: List[Span]
     counters: Dict[str, float]
     events: List[Event]
     slice: Optional[Tuple[int, int]]
     slice_counts: Dict[str, float]
     serving: Tuple[str, ...]        # the entry spans of this cell
+    cards: List[Card] = dataclasses.field(default_factory=list)
+
+    @property
+    def events_by_card(self) -> List[List[Event]]:
+        return [c.events for c in self.cards]
 
     def slice_spans(self, names=None):
         if self.slice is None:
@@ -238,5 +270,40 @@ def breakdown(t: TraceView, top: int = 10) -> dict:
     return {"device_ops": [[n, s] for n, s in ops], "idle_gaps": named}
 
 
+def card_busy(t: TraceView, card: Card):
+    """Merged device-busy intervals of one card, clipped to rank 0's
+    slice."""
+    if t.slice is None:
+        return []
+    return clip(union((a, b) for _n, _k, a, b in card.events), *t.slice)
+
+
+def card_busy_s(t: TraceView) -> List[float]:
+    """Each card's busy seconds in the slice (one card: rank 0's)."""
+    cards = t.cards or [Card(0, 0, t.events)]
+    return [sum(b - a for a, b in card_busy(t, c)) / 1e9 for c in cards]
+
+
 def device_busy_s(t: TraceView) -> float:
-    return sum(b - a for a, b in t.busy()) / 1e9
+    """The mean over the cards of each card's busy seconds in the slice:
+    over ``window_s`` a share of at most 1."""
+    busy = card_busy_s(t)
+    return sum(busy) / len(busy)
+
+
+def card_idle_shares(t: TraceView):
+    """Each card's share of its rank's serving time (the union of the
+    cell's entry spans on that rank, in rank 0's slice) in which nothing
+    ran on that card, and their mean; a card with no serving time or no
+    events reads None, and then so does the mean."""
+    shares = []
+    for c in t.cards:
+        serve = clip(union((a, b) for n, a, b in c.spans
+                           if n in t.serving), *t.slice) \
+            if t.slice is not None else []
+        total = sum(b - a for a, b in serve)
+        shares.append(1.0 - overlap(serve, card_busy(t, c)) / total
+                      if total > 0 and c.events else None)
+    mean = None if not shares or None in shares else \
+        sum(shares) / len(shares)
+    return shares, mean

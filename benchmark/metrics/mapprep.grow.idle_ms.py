@@ -1,7 +1,7 @@
 """mapprep.grow.idle_ms: device-idle ms inside the program's
-mapprep.grow spans (region growth, a host read a wave; the refiner's
-regrowths included) within its online.set_map spans, per map switch of
-the traced slice."""
+mapprep.grow spans (region growth, one launch and one host read a
+growth call; the refiner's regrowths included) within its
+online.set_map spans, per map switch of the traced slice."""
 
 from harness.program import stage_idle_ms
 

@@ -22,6 +22,20 @@ JAX package is loaded once the window has closed.
 in the program's place, no window) and ``--mode cache-bf16`` runs the
 program with its field stored in bfloat16: both have to come out not
 correct.  They set and check the limits and are no part of a cell's run.
+
+A cell whose ``chips`` N is above 1 runs over N ranks, one card each
+(harness/kind.py, harness/ranks.py).  This process is rank 0: during
+set-up it starts ranks 1..N-1 as its children (``run.py --rank k``, the
+run on their standard input), every rank with torchrun's environment,
+and the program starts its process group as under torchrun.  After the
+window every rank hands rank 0 its card: peak memory, traced events,
+spans and counters, and the forbidden modules it loaded.  The result
+counts N cards, its ``memory_peak_bytes`` is the fullest card's and its
+``busy_s`` the cards' mean; lines before it give each card's; the
+breakdown is rank 0's card.  A rank that fails, or is not done
+``--seconds`` + 180 s after the window began, ends the run with exit 1,
+named with the end of its standard error; no rank outlives rank 0.  With
+one card no process is started.
 """
 
 import time
@@ -77,20 +91,97 @@ def parse(argv=None):
     return ap.parse_args(argv)
 
 
+def prepare(cuda: bool) -> None:
+    import torch
+    if cuda:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+
+
+def open_run(module, cell, seed, seconds, device, mode, rank, world):
+    run = module.Run(cell, seed, device=device, mode=mode)
+    run.seconds, run.rank, run.world = seconds, rank, world
+    return run
+
+
+def peak_bytes(cuda: bool) -> int:
+    """The card's peak memory since its last reset; on the CPU (tests)
+    the process's resident set as the window closes (getrusage's peak
+    also counts the process it was started from)."""
+    if cuda:
+        import torch
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated()
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+
+def measure(run, seconds, trace, cuda):
+    """This rank's window: the card's peak memory from its start, and the
+    device trace of a slice of it (``trace``)."""
+    import torch
+    from harness import trace as tr
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    dev_trace = tr.DeviceTrace() if trace else None
+    if dev_trace is not None:
+        dev_trace.warm()
+    run.window(seconds, dev_trace)
+    return peak_bytes(cuda), dev_trace
+
+
+def card(rank, peak, run, dev_trace, program=False):
+    """This rank's card (harness/trace.py); ``program``: with the
+    program's span records and counters of this process."""
+    from harness import trace as tr
+    from harness.program import recorded
+    spans, counters = recorded() if program else ([], {})
+    return tr.Card(rank, int(peak),
+                   dev_trace.events if dev_trace is not None else [],
+                   dev_trace.slice if dev_trace is not None else None,
+                   run.spans.spans, run.spans.counters, spans, counters,
+                   loaded_forbidden())
+
+
 def execute(cell, seed, seconds, trace, mode="program", device="cuda",
             t_start=None):
     """Set up, run the window and judge one cell; returns the result
     object and the lines to print before it.  ``device`` "cpu" runs the
-    plain versions (tests)."""
+    plain versions (tests).  A cell over several cards starts its other
+    ranks here (module docstring)."""
+    t_start = time.perf_counter() if t_start is None else t_start
+    world = int(cell.entry.get("chips", 1))
+    module = cell.traffic_module()
+    if world == 1:
+        return run_cell(module, cell, seed, seconds, trace, mode, device,
+                        t_start)
+    if not getattr(module.Run, "ranks", False):
+        fail(f"cell {cell.name} asks for {world} cards, and its traffic "
+             f"kind {cell.kind!r} does not run over ranks (no "
+             f"`ranks = True`)", 2)
+    from harness import ranks
+    group = ranks.Group(cell, seed, seconds, trace, mode, device)
+    try:
+        out = run_cell(module, cell, seed, seconds, trace, mode, device,
+                       t_start, group)
+    except BaseException:
+        group.abort()
+        raise
+    group.close()
+    return out
+
+
+def run_cell(module, cell, seed, seconds, trace, mode, device, t_start,
+             group=None):
+    """``execute`` on rank 0, with the other ranks' ``group`` (None on
+    one card)."""
     import torch
     from harness import trace as tr
-    t_start = time.perf_counter() if t_start is None else t_start
     cuda = device != "cpu"
-    if cuda:
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-    run = cell.traffic_module().Run(cell, seed, device=device, mode=mode)
-    run.seconds = seconds
+    prepare(cuda)
+    world = 1 if group is None else group.world
+    run = open_run(module, cell, seed, seconds, device, mode, 0, world)
     run.setup()
     setup_s = time.perf_counter() - t_start
     lines = [f"cell={cell.name} kind={cell.kind} seed={seed} mode={mode} "
@@ -98,16 +189,15 @@ def execute(cell, seed, seconds, trace, mode="program", device="cuda",
     dev_trace = None
     peak = 0
     if mode != "control":
-        if cuda:
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-        dev_trace = tr.DeviceTrace() if trace else None
-        if dev_trace is not None:
-            dev_trace.warm()
-        run.window(seconds, dev_trace)
-        if cuda:
-            torch.cuda.synchronize()
-            peak = torch.cuda.max_memory_allocated()
+        if group is not None:
+            group.window_started()
+        peak, dev_trace = measure(run, seconds, trace, cuda)
+    cards = [card(0, peak, run, dev_trace)]
+    if group is not None:
+        cards += group.gather()
+        peak = max(c.memory_peak_bytes for c in cards)
+    run.cards = cards
+    if mode != "control":
         lines += run.notes()
         if dev_trace is not None:
             ev = dev_trace.events
@@ -124,14 +214,18 @@ def execute(cell, seed, seconds, trace, mode="program", device="cuda",
     bad = loaded_forbidden()
     if bad:
         fail(f"modules loaded after the window: {bad}")
-    metrics, device_info, breakdown = {}, {}, None
+    for c in cards[1:]:
+        if c.forbidden:
+            fail(f"modules loaded after the window on rank {c.rank}: "
+                 f"{c.forbidden}")
+    metrics, device_info, breakdown, view = {}, {}, None, None
     if mode != "control":
         e2e = run.end_to_end()
         e2e["setup_s"] = setup_s
         if trace:
             view = tr.TraceView(run.spans.spans, run.spans.counters,
                                 dev_trace.events, dev_trace.slice,
-                                run.slice_counts(), run.serving)
+                                run.slice_counts(), run.serving, cards)
             for m in cell.per_layer:
                 v = cell.metric_reader(m["name"]).read(view)
                 if v is not None:
@@ -144,6 +238,14 @@ def execute(cell, seed, seconds, trace, mode="program", device="cuda",
             for m in cell.end_to_end:
                 metrics[m["name"]] = {"value": float(e2e[m["name"]]),
                                       "unit": m["unit"]}
+    if group is not None:
+        busy = tr.card_busy_s(view) if view is not None else None
+        for c in cards:
+            lines.append(f"card {c.rank}: memory_peak_bytes="
+                         f"{c.memory_peak_bytes}" +
+                         (f" busy_s={busy[c.rank]!r}" if busy else ""))
+        if breakdown is not None:
+            lines.append("breakdown: rank 0's card alone")
     run.release()
     t_judge = time.perf_counter()
     checks = run.judge()
@@ -157,7 +259,7 @@ def execute(cell, seed, seconds, trace, mode="program", device="cuda",
               "device": {"platform": "gpu" if cuda else "cpu",
                          "kind": torch.cuda.get_device_name(0) if cuda
                          else "cpu",
-                         "count": 1, "memory_peak_bytes": int(peak),
+                         "count": world, "memory_peak_bytes": int(peak),
                          **device_info}}
     if breakdown is not None:
         result["breakdown"] = breakdown
@@ -166,7 +268,50 @@ def execute(cell, seed, seconds, trace, mode="program", device="cuda",
     return result, lines, checks
 
 
+def rank_main(rank: int) -> int:
+    """Rank ``rank`` (1..N-1) of a cell over cards, a child of rank 0:
+    its run read from standard input, its card handed back on standard
+    output once its window has closed (harness/ranks.py)."""
+    environment()
+    sys.path[:0] = [str(BENCH), str(ROOT)]
+    from harness import ranks
+    from harness.spec import Cell
+    spec, report = ranks.start_rank()
+    import torch
+    torch.set_num_threads(1)
+    cell = Cell(**spec["cell"])
+    cuda = spec["device"] != "cpu"
+    if cuda:
+        torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
+    prepare(cuda)
+    run = open_run(cell.traffic_module(), cell, spec["seed"],
+                   spec["seconds"], spec["device"], spec["mode"], rank,
+                   int(os.environ["WORLD_SIZE"]))
+    run.setup()
+    peak, dev_trace = 0, None
+    if spec["mode"] != "control":
+        peak, dev_trace = measure(run, spec["seconds"], spec["trace"], cuda)
+    ranks.hand_over(report, card(rank, peak, run, dev_trace, program=True))
+    run.release()
+    return 0
+
+
+def emit(result, lines, checks) -> None:
+    """The run's lines, the numbers compared (standard error's last
+    lines), and the result (standard output's last line)."""
+    for ln in lines:
+        print(ln, flush=True)
+    for c in checks:
+        print(f"check {c['name']} = {c['value']!r} (limit {c['op']} "
+              f"{c['limit']!r}) {'ok' if c['ok'] else 'FAIL'}",
+              file=sys.stderr, flush=True)
+    print(json.dumps(result), flush=True)
+
+
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["--rank"]:
+        return rank_main(int(argv[1]))
     args = parse(argv)
     environment()
     sys.path[:0] = [str(BENCH), str(ROOT)]
@@ -187,15 +332,8 @@ def main(argv=None) -> int:
         import lsdtpu_torch  # noqa: F401
     except ImportError as e:
         fail(f"the program (lsdtpu_torch) is not in this checkout: {e}", 2)
-    result, lines, checks = execute(cell, args.seed, args.seconds,
-                                    args.trace, args.mode, "cuda", T_START)
-    for ln in lines:
-        print(ln, flush=True)
-    for c in checks:
-        print(f"check {c['name']} = {c['value']!r} (limit {c['op']} "
-              f"{c['limit']!r}) {'ok' if c['ok'] else 'FAIL'}",
-              file=sys.stderr, flush=True)
-    print(json.dumps(result), flush=True)
+    emit(*execute(cell, args.seed, args.seconds, args.trace, args.mode,
+                  "cuda", T_START))
     return 0
 
 

@@ -13,8 +13,8 @@ for a card skipped: a step that returns its state unchanged; half of
 the batch left out (its lanes' states never advance, or their answers
 copied from the other half); an answer altered where it is produced (a
 pose moved 4 px, 0.1 m on the cells' grid; a candidate count off by one;
-a field cell moved 1 mm).  The exchange between chips has no fault here:
-every cell runs on one card."""
+a field cell moved 1 mm).  The fault in the exchange between cards
+comes with the first four-card cell, whose kind runs over ranks."""
 
 import types
 
