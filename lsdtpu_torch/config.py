@@ -134,6 +134,12 @@ class ShapeConfig:
     max_splits: int = 360          # RDP split points (absolute bound)
     # gated (scan, map, 4) hypotheses; candidate_overflow flags excess
     max_candidates: int = 2048
+    # gated hypotheses of a relock lane (a lane at the (-1, -1) sentinel,
+    # whose gate is the length test alone) in a serving pool's tick that
+    # carries one (runtime/serving.py): a global relock on a map of
+    # data1's size gates ~1,600-2,700 hypotheses, past max_candidates on
+    # most first scans; candidate_overflow flags excess here too
+    relock_candidates: int = 4096
 
 
 @dataclasses.dataclass(frozen=True)

@@ -189,6 +189,24 @@ def generate_candidates(scan_lines, scan_mask, map_lines, map_mask,
         mask=mask, count=count)
 
 
+def head(cand: Candidates, k: int) -> Candidates:
+    """The first ``k`` slots of each lane (contiguous; ``count`` stays
+    the raw total)."""
+    return Candidates(*(t[..., :k].contiguous() for t in (
+        cand.ca, cand.sa, cand.sx, cand.sy, cand.mx, cand.my)),
+        pose=cand.pose[..., :k, :].contiguous(), mask=cand.mask[..., :k],
+        count=cand.count)
+
+
+def keep_head(cand: Candidates, k: int, whole) -> Candidates:
+    """``cand`` with the slots from ``k`` on masked out in every lane but
+    those where ``whole`` ((...) bool) is set: those lanes' candidates
+    past the head are neither scored nor fused."""
+    K = cand.mask.shape[-1]
+    keep = whole[..., None] | (torch.arange(K, device=cand.mask.device) < k)
+    return dataclasses.replace(cand, mask=cand.mask & keep)
+
+
 def _check_obstacle_min_dist(obstacle_min_dist, z_occ_max_dis):
     if obstacle_min_dist is None:
         return z_occ_max_dis

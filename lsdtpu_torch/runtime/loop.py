@@ -160,15 +160,19 @@ def localization_step(state: TrackState, frame_inputs, ctx: MapContext,
                       cfg: EngineConfig = DEFAULT,
                       tp_axis: Axis = Axis.none(),
                       mp_axis: Axis = Axis.none(),
-                      coarse=None) -> Tuple[TrackState, dict]:
+                      coarse=None, relock: bool = False
+                      ) -> Tuple[TrackState, dict]:
     """One frame: featurize + associate + fuse + UKF + state update.
 
     frame_inputs: (ranges (N,), angles (N,), valid (N,), n (),
     odom_prev (3,), odom_cur (3,)) tensors on the context's device.
-    coarse: the per-map pruning field (prepare_coarse) or None."""
+    coarse: the per-map pruning field (prepare_coarse) or None.
+    relock: the lanes may hold a relock that overflows
+    shapes.max_candidates (match_stage)."""
     fs = featurize_stage(frame_inputs, ctx, cfg)
     return match_stage(state, fs, frame_inputs, ctx, cfg,
-                       tp_axis=tp_axis, mp_axis=mp_axis, coarse=coarse)
+                       tp_axis=tp_axis, mp_axis=mp_axis, coarse=coarse,
+                       relock=relock)
 
 
 def prepare_coarse(ctx: MapContext, cfg: EngineConfig = DEFAULT):
@@ -201,12 +205,20 @@ def match_stage(state: TrackState, fs, frame_inputs, ctx: MapContext,
                 cfg: EngineConfig = DEFAULT,
                 tp_axis: Axis = Axis.none(),
                 mp_axis: Axis = Axis.none(),
-                coarse=None, cand=None) -> Tuple[TrackState, dict]:
+                coarse=None, cand=None, relock: bool = False
+                ) -> Tuple[TrackState, dict]:
     """Association + fusion + UKF + tracking state (L4/L5 of the
     reference) on precomputed ScanFeatures.  cand: optional
     pre-generated Candidates for this (state, fs) pair.  tp_axis: ctx
     holds this rank's block of the map lines; mp_axis: ctx.cache holds
-    this rank's row block of the field (module docstring)."""
+    this rank's row block of the field (module docstring).
+
+    relock (a serving pool's tick that carries a relock lane): the
+    candidates are compacted into shapes.relock_candidates slots, and a
+    relock lane whose gated count passes shapes.max_candidates is
+    scored, fused and flagged over all of them; every other lane keeps
+    its first max_candidates, so its outputs are those of the step
+    without ``relock`` bit for bit."""
     if cfg.match.polish_pose and mp_axis.size > 1:
         raise ValueError(
             "match.polish_pose requires a full-field cache view and is "
@@ -214,12 +226,12 @@ def match_stage(state: TrackState, fs, frame_inputs, ctx: MapContext,
             "polish or use a (dp, tp) mesh")
     with trace.span("step.match"):
         return _match(state, fs, frame_inputs, ctx, cfg, tp_axis, mp_axis,
-                      coarse, cand)
+                      coarse, cand, relock)
 
 
 def _match(state: TrackState, fs, frame_inputs, ctx: MapContext,
            cfg: EngineConfig, tp_axis: Axis, mp_axis: Axis, coarse,
-           cand) -> Tuple[TrackState, dict]:
+           cand, relock: bool) -> Tuple[TrackState, dict]:
     """match_stage's body, one span a stage."""
     ranges, angles, valid, n, odom_prev, odom_cur = frame_inputs
     lanes = tuple(ranges.shape[:-1])
@@ -254,14 +266,23 @@ def _match(state: TrackState, fs, frame_inputs, ctx: MapContext,
             scan_radius = torch.where(fs.pixels_mask,
                                       geo.sqrt(pdx * pdx + pdy * pdy),
                                       0.0).amax(-1)
+        wide = cand is None and relock and \
+            sh.relock_candidates > sh.max_candidates
         if cand is None:
             cand = assoc.generate_candidates(
                 fs.lines, fs.lines_mask, ctx.lines, ctx.lines_mask,
                 lidar_pose, state.last_pose,
-                max_candidates=sh.max_candidates,
+                max_candidates=sh.relock_candidates if wide
+                else sh.max_candidates,
                 ignore_scan_length=cfg.match.ignore_scan_length,
                 scan_to_map_diff=cfg.match.scan_to_map_diff,
                 max_esti_dist=cfg.match.max_esti_dist)
+        if wide:
+            # the relock lanes past max_candidates take the whole buffer;
+            # the others keep its first max_candidates slots
+            widen = (state.last_pose[..., 0] == -1) & \
+                (cand.count > sh.max_candidates)
+            cand = assoc.keep_head(cand, sh.max_candidates, widen)
     with trace.span("match.score"):
         if mp_axis.size > 1:
             # map-block sharding: this rank owns rows [row0, row0 + block_h)
@@ -304,9 +325,19 @@ def _match(state: TrackState, fs, frame_inputs, ctx: MapContext,
     with trace.span("match.fuse"):
         # faithful: a perfect (score 0) candidate NaN-poisons the fused pose
         # exactly like the reference's inf weight (myFA.cpp:161)
-        pose_w, fused_score, pose_min, min_score, n_acc = assoc.fuse(
-            cand, scores, cfg.match.score_accept, axis_name=tp_axis,
-            score_floor=0.0 if cfg.faithful else 1e-6)
+        fused = assoc.fuse(cand, scores, cfg.match.score_accept,
+                           axis_name=tp_axis,
+                           score_floor=0.0 if cfg.faithful else 1e-6)
+        if wide:
+            # the lanes that keep the head fuse over it alone, in the
+            # shapes of the step without ``relock``
+            K = sh.max_candidates
+            head = assoc.fuse(assoc.head(cand, K),
+                              scores[..., :K].contiguous(),
+                              cfg.match.score_accept, axis_name=tp_axis,
+                              score_floor=0.0 if cfg.faithful else 1e-6)
+            fused = tuple(where(widen, a, b) for a, b in zip(fused, head))
+        pose_w, fused_score, pose_min, min_score, n_acc = fused
         if cfg.match.polish_pose:
             # sub-pixel Gauss-Newton polish of both measurement paths
             # (tracking weighted mean + first-frame argmin) against the
@@ -383,7 +414,10 @@ def _match(state: TrackState, fs, frame_inputs, ctx: MapContext,
             kalman_x=new_x, kalman_P=new_P, last_pose=new_x[..., :3],
             ang_sum=state.ang_sum + ang_diff, ang_cnt=state.ang_cnt + 1,
             is_offset=is_offset, frame=frame, lost_streak=streak)
-        overflow = (cand.count > cand.mask.shape[-1]) | fs.overflow
+        cap = cand.mask.shape[-1]
+        if wide:
+            cap = torch.where(widen, cap, sh.max_candidates)
+        overflow = (cand.count > cap) | fs.overflow
         # candidate counts are per map-line block; an overflow on any rank is
         # every rank's
         overflow = tp_axis.pmax(overflow)

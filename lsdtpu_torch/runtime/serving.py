@@ -13,6 +13,16 @@ ticks; joining/leaving sessions swaps a slot's map context and resets
 its state.  Slots without a submitted scan (idle, or never opened) run
 the step on an empty scan and keep their state.
 
+A slot relocks (a global match from the (-1, -1) sentinel) on its first
+scan after it was opened and on the scan after an answer was lost
+(score inf).  The pool knows these slots on the host, from its own
+calls and from the outputs it reads back, so a tick that carries one
+steps every lane with ``relock`` (runtime/loop.match_stage): a relock
+lane is answered from up to shapes.relock_candidates gated hypotheses,
+and every other lane's outputs are those of a tick without one, bit
+for bit.  Neither the swap of a slot's map nor a relock adds a read of
+the device.
+
 With ``mesh`` (make_pool_mesh: a 1-D mesh of ranks, each with its own
 card or sharing one) the slot axis is spread over the ranks, as in a
 multi-controller pool: every rank makes the same calls and holds the same
@@ -65,12 +75,14 @@ def to_host(out: dict) -> dict:
 
 
 def _pool_step(states: TrackState, inputs, ctxs: MapContext, active,
-               cfg: EngineConfig, coarse=None):
+               cfg: EngineConfig, coarse=None, relock: bool = False):
     """One step over every slot; inactive slots keep their state.
     coarse: optional (B, ch, cw) per-slot pruning fields, maintained by
-    the pool beside the slot fields (loop-invariant across ticks)."""
+    the pool beside the slot fields (loop-invariant across ticks).
+    relock: a slot of the tick relocks (module docstring)."""
     new_states, outs = localization_step(states, inputs, ctxs,
-                                         batched_cfg(cfg), coarse=coarse)
+                                         batched_cfg(cfg), coarse=coarse,
+                                         relock=relock)
     return TrackState(*(
         geo.lane_where(active, getattr(new_states, f.name),
                        getattr(states, f.name))
@@ -133,57 +145,64 @@ class SessionPool:
         self._sessions: Dict[str, int] = {}
         self._prev_odom: Dict[str, np.ndarray] = {}
         self._pending: Dict[int, tuple] = {}
+        # slots whose next scan relocks: opened, or last answer lost
+        self._relock: set = set()
         self._ticks = 0           # steps taken: the tracer's requests
 
     # -- session lifecycle ------------------------------------------------
     def open_session(self, sid: str, lines_info, map_cache, resol,
                      ori_x, ori_y) -> None:
-        if sid in self._sessions:
-            raise ValueError(f"session {sid!r} already open")
-        if not self._free:
-            raise RuntimeError("pool full")
-        h, w = map_cache.shape
-        if h > self.H or w > self.W:
-            raise ValueError(f"map {h}x{w} exceeds canvas "
-                             f"{self.H}x{self.W}")
-        M = self.cfg.shapes.max_map_lines
-        k = len(lines_info)
-        if k > M:
-            # caps are never silent (ShapeConfig contract)
-            raise ValueError(f"map has {k} lines > "
-                             f"shapes.max_map_lines={M}; raise the cap")
-        slot = self._free.pop(0)
-        self._sessions[sid] = slot
-        if not self._mine.start <= slot < self._mine.stop:
-            return            # another rank's slot: the table only
-        slot -= self._mine.start
-        dev = self.device
-        c = self._ctxs
-        dt = c.lines.dtype
-        c.lines[slot] = 0
-        c.lines[slot, :k] = torch.as_tensor(lines_info).to(dev, dt)
-        c.lines_mask[slot] = torch.arange(M, device=dev) < k
-        # the slot's canvas: its map, the cap elsewhere, in the working
-        # type (an f64 pool keeps the f64 field, as make_map_context does)
-        cache = torch.full((self.H, self.W), self.cfg.map.z_occ_max_dis,
-                           dtype=dt, device=dev)
-        cache[:h, :w] = torch.as_tensor(map_cache).to(dev, dt)
-        cache = self._quantize(cache)
-        _put(c.cache, slot, cache)
-        c.rows[slot], c.cols[slot] = h, w
-        for name, v in (("resol", resol), ("ori_x", ori_x),
-                        ("ori_y", ori_y)):
-            getattr(c, name)[slot] = float(v)
-        if self._coarse is not None:
-            _put(self._coarse, slot,
-                 coarse_field(cache, self.cfg.match.prune_block))
-        self._reset_slot(slot)
+        """Take a free slot for ``sid`` with this map; its first scan
+        relocks.  No read of the device."""
+        with trace.span("pool.open_session"):
+            if sid in self._sessions:
+                raise ValueError(f"session {sid!r} already open")
+            if not self._free:
+                raise RuntimeError("pool full")
+            h, w = map_cache.shape
+            if h > self.H or w > self.W:
+                raise ValueError(f"map {h}x{w} exceeds canvas "
+                                 f"{self.H}x{self.W}")
+            M = self.cfg.shapes.max_map_lines
+            k = len(lines_info)
+            if k > M:
+                # caps are never silent (ShapeConfig contract)
+                raise ValueError(f"map has {k} lines > "
+                                 f"shapes.max_map_lines={M}; raise the cap")
+            slot = self._free.pop(0)
+            self._sessions[sid] = slot
+            self._relock.add(slot)
+            if not self._mine.start <= slot < self._mine.stop:
+                return            # another rank's slot: the table only
+            slot -= self._mine.start
+            dev = self.device
+            c = self._ctxs
+            dt = c.lines.dtype
+            c.lines[slot] = 0
+            c.lines[slot, :k] = torch.as_tensor(lines_info).to(dev, dt)
+            c.lines_mask[slot] = torch.arange(M, device=dev) < k
+            # the slot's canvas: its map, the cap elsewhere, in the working
+            # type (an f64 pool keeps the f64 field, as make_map_context does)
+            cache = torch.full((self.H, self.W), self.cfg.map.z_occ_max_dis,
+                               dtype=dt, device=dev)
+            cache[:h, :w] = torch.as_tensor(map_cache).to(dev, dt)
+            cache = self._quantize(cache)
+            _put(c.cache, slot, cache)
+            c.rows[slot], c.cols[slot] = h, w
+            for name, v in (("resol", resol), ("ori_x", ori_x),
+                            ("ori_y", ori_y)):
+                getattr(c, name)[slot] = float(v)
+            if self._coarse is not None:
+                _put(self._coarse, slot,
+                     coarse_field(cache, self.cfg.match.prune_block))
+            self._reset_slot(slot)
 
     def close_session(self, sid: str) -> None:
-        slot = self._sessions.pop(sid)
-        self._prev_odom.pop(sid, None)
-        self._pending.pop(slot, None)
-        self._free.append(slot)
+        with trace.span("pool.close_session"):
+            slot = self._sessions.pop(sid)
+            self._prev_odom.pop(sid, None)
+            self._pending.pop(slot, None)
+            self._free.append(slot)
 
     def _reset_slot(self, slot: int) -> None:
         fresh = init_state(self._states.kalman_x.dtype, self.device)
@@ -225,16 +244,26 @@ class SessionPool:
             return {}
         self._ticks += 1
         with trace.span("pool.step", self._ticks) as sp:
+            relock = sorted(self._relock.intersection(self._pending))
             inputs, active = self._pack()
             self._states, outs = _pool_step(self._states, inputs,
                                             self._ctxs, active, self.cfg,
-                                            self._coarse)
+                                            self._coarse, bool(relock))
             with trace.span("pool.readback"):
                 host = to_host(gather_lanes(self._axis, outs))
             results = {sid: {k: v[slot] for k, v in host.items()}
                        for sid, slot in self._sessions.items()
                        if slot in self._pending}
-            sp.set(slots_stepped=self.capacity, scans_carried=len(results))
+            lost = {slot for slot in self._pending
+                    if not np.isfinite(host["score"][slot])}
+            self._relock = (self._relock - set(self._pending)) | lost
+            if relock:
+                trace.count("pool.relock_ticks")
+                trace.count("pool.relock_lanes", len(relock))
+                trace.count("pool.relock_overflow", int(
+                    host["candidate_overflow"][relock].sum()))
+            sp.set(slots_stepped=self.capacity, scans_carried=len(results),
+                   relock_lanes=len(relock))
             self._pending.clear()
             return results
 

@@ -219,7 +219,10 @@ def test_pool_step_spans(how):
     steps = [s for s in spans if s.name == "pool.step"]
     assert [s.request for s in steps] == [1, 2]
     assert all(s.parent is None for s in steps)
-    assert steps[0].counts == {"slots_stepped": 3, "scans_carried": 2}
+    # the first tick relocks both robots, the second tracks them
+    assert steps[0].counts == {"slots_stepped": 3, "scans_carried": 2,
+                               "relock_lanes": 2}
+    assert steps[1].counts["relock_lanes"] == 0
     # every stage of a tick shares the tick's request
     for s in spans:
         if s.name in POOL_SPANS and s.name != "host.gc":
